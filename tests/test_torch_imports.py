@@ -1,0 +1,51 @@
+"""The port stands alone: importing it loads neither JAX nor ``repro``."""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import json, sys
+import repro_torch, repro_torch.core, repro_torch.core.cuda_backend
+import repro_torch.kernels.ops, repro_torch.kernels.banked_matmul
+import repro_torch.core.torch_backend, repro_torch.device
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or m == "repro" or m.startswith("repro."))))
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                       text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    text = (ROOT / "chip_smoke.py").read_text()
+    for line in text.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro"), line
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """With no CUDA device, or alone in a directory, it fails and prints no
+    result line."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", alone):
+        r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                           text=True, cwd=str(script.parent), timeout=120,
+                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
