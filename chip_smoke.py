@@ -9,8 +9,12 @@ toolkit.  Phases:
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
    CUDA kernel of the port from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together);
-2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of ``tests/test_kernels.py`` and at 256^3 and 1024^3;
+2. holds each kernel against its plain PyTorch version on the card: the
+   banked matmul at the shapes of ``tests/test_kernels.py`` and at 256^3 and
+   1024^3; attention, the decay scan and the conv at every case of that
+   file's ``TestFlashAttention``, ``TestDecayScan`` and ``TestBankedConv2d``
+   and at the shapes of ``benchmarks/kernel_bench.py`` (the tables of
+   ``repro_torch.kernels.checks``, which the card tests share);
 3. drives the main path, the paper's flow: compiles the paper's FFNN, MHA
    and CNN at full width with the port, runs each design on the card through
    the banked-kernel backend (``execute_graph_cuda``) and checks it against
@@ -18,12 +22,23 @@ toolkit.  Phases:
    launch counts are zeroed just before and read just after, and must equal
    the graphs' matmul counts; the designs that conflict on banks must still
    raise ``BankConflictError``;
-4. at the main path's own shapes, holds the kernel against its plain version
-   once more and times kernel, plain version and ``torch.matmul`` (the
-   library yardstick, which the port never calls): each call with CUDA
-   events over back-to-back calls, and its device time alone with
-   ``torch.profiler``;
-5. times each design's banked-backend run on the host clock and takes its
+4. drives the kernels' own entry points, ``ops.attention``,
+   ``ops.decay_scan`` and ``ops.conv2d``, at full width, each path with
+   every launch count zeroed just before and read just after: attention at
+   qwen2-0.5b's heads (14 q, 2 kv, head dim 64) over 4096 tokens, causal
+   and not, f32 and bf16; the RWKV6 bonus scan at rwkv6-7b's (64 heads of
+   64) and the Mamba2 inclusive scan at zamba2-7b's (112 heads of 64,
+   state 64), 4096 tokens at chunk 64; the conv of the paper's CNN as the
+   port compiles it, at banks (1,1), (2,2) and (4,2); each output is held
+   against the plain version (and the conv against the torch oracle);
+5. at each path's own shapes, holds each kernel against its plain version
+   and times kernel, plain version and the library yardstick, which the
+   port never calls (``torch.matmul``, ``scaled_dot_product_attention``
+   with GQA and with k, v repeated, the faster reported and each with the
+   backend its kernels show, ``F.conv2d``; no single call computes the
+   scan): each call with CUDA events over back-to-back calls, and its
+   device time alone with ``torch.profiler``;
+6. times each design's banked-backend run on the host clock and takes its
    device time by kernel from ``torch.profiler``.
 
 Prints one JSON ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
@@ -39,6 +54,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -63,6 +79,15 @@ DESIGNS = [("paper_ffnn", (1, 64), (1, 2, 4), ()),
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
 
+KERNEL_SOURCES = ["banked_matmul", "banked_conv2d", "flash_attention", "ssm_scan"]
+
+# full width: heads of the configurations the repo registers
+# (src/repro/configs/qwen2_0_5b.py, rwkv6_7b.py, zamba2_7b.py), 4096 tokens
+ATTN_FULL = dict(b=1, hq=14, hkv=2, s=4096, d=64)            # qwen2-0.5b
+RWKV_FULL = dict(b=1, h=64, s=4096, dk=64, dv=64, chunk=64)  # rwkv6-7b, rwkv.py:77
+ZAMBA_FULL = dict(b=1, h=112, s=4096, dk=64, dv=64, chunk=64)  # zamba2-7b, mamba.py:66
+CONV_BANKS = [(1, 1), (2, 2), (4, 2)]      # as tests/test_kernels.py
+
 
 class PhaseFailed(Exception):
     pass
@@ -73,11 +98,14 @@ def _check(cond: bool, what: str) -> None:
         raise PhaseFailed(what)
 
 
-def _excess(got: torch.Tensor, want: torch.Tensor, tol: float):
-    """(max |got - want|, max of |got - want| - (tol + tol * |want|))."""
+def _excess(got: torch.Tensor, want: torch.Tensor, rtol: float,
+            atol: Optional[float] = None):
+    """(max |got - want|, max of |got - want| - (atol + rtol * |want|));
+    ``atol`` defaults to ``rtol``."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    return float(diff.max()), float((diff - tol - tol * w.abs()).max())
+    atol = rtol if atol is None else atol
+    return float(diff.max()), float((diff - atol - rtol * w.abs()).max())
 
 
 def _linear_weight(rng, k: int, n: int) -> np.ndarray:
@@ -91,9 +119,10 @@ def _linear_weight(rng, k: int, n: int) -> np.ndarray:
     return rng.uniform(-bound, bound, size=(k, n)).astype(np.float32)
 
 
-def _time_ms(fn, reps: int = 7, iters: int = 50) -> float:
+def _time_ms(fn, reps: int = 7, iters: int = 50, warm: bool = True) -> float:
     """Median over ``reps`` of the mean time of ``iters`` back-to-back calls."""
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -127,18 +156,44 @@ def _device_events(prof) -> dict:
     return device
 
 
-def _device_ms(fn, iters: int = 20) -> float:
-    """Mean device time of one call (its kernels and copies on the card,
-    from ``torch.profiler``): at the main path's shapes a call is far
-    shorter than its launch from Python, which CUDA events also count."""
+def _device_profile(fn, iters: int = 20, warm: bool = True):
+    """(mean device time of one call, its device kernels by time): the
+    kernels and copies on the card, from ``torch.profiler``.  At the main
+    path's shapes a call is far shorter than its launch from Python, which
+    CUDA events also count."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(_device_events(prof).values()) / iters
+    events = _device_events(prof)
+    names = [k for k, _ in sorted(events.items(), key=lambda kv: -kv[1])]
+    return sum(events.values()) / iters, names
+
+
+def _device_ms(fn, iters: int = 20, warm: bool = True) -> float:
+    return _device_profile(fn, iters, warm)[0]
+
+
+def _times(fn) -> dict:
+    """Call time (CUDA events), device time and device kernels (profiler)
+    of ``fn``, with as many calls as fit in about 0.2 s (one call at
+    least): the plain scan's loop over 4096 steps takes a good part of a
+    second."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    iters = max(1, min(50, int(0.2 / max(one, 1e-6))))
+    reps = 7 if iters > 1 else 3
+    device_ms, names = _device_profile(fn, max(1, min(20, iters)), warm=False)
+    return {"ms": _time_ms(fn, reps, iters, warm=False), "device_ms": device_ms,
+            "kernels": [n[:100] for n in names[:3]]}
 
 
 def _bound(m: int, k: int, n: int, dtype, out_dtype):
@@ -159,11 +214,12 @@ def phase_card_and_build(build):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    secs = build.build(["banked_matmul"])
+    secs = build.build(KERNEL_SOURCES)
     print(f"build: {secs:.1f}s")
     for name, text in build.log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers", "spill",
+                                       "error")):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -381,6 +437,274 @@ def phase_times(ops, ref, full_f32, shapes, launches):
             "library_device_ms": total["library_device_ms"]}
 
 
+
+def _cuda(x: np.ndarray, dtype=torch.float32) -> torch.Tensor:
+    """numpy -> float32 on the card -> dtype (both sides see the same values)."""
+    return torch.tensor(x, dtype=torch.float32, device="cuda").to(dtype)
+
+
+def _hold(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
+          atol: float, worst: dict) -> float:
+    """Check ``got`` against ``want`` at ``rtol``, ``atol``; keep the worst."""
+    torch.cuda.synchronize()
+    _check(got.shape == want.shape and got.dtype == want.dtype,
+           f"{label}: got {got.dtype} {tuple(got.shape)}, "
+           f"want {want.dtype} {tuple(want.shape)}")
+    _check(bool(torch.isfinite(got.float()).all()), f"{label}: not finite")
+    err, excess = _excess(got, want, rtol, atol)
+    _check(excess <= 0, f"{label}: max |kernel - plain| {err:.3g} beyond "
+                        f"rtol {rtol}, atol {atol}")
+    worst[label.split(":")[0]] = max(worst.get(label.split(":")[0], 0.0), err)
+    return err
+
+
+def phase_vs_plain(name: str, table) -> None:
+    """Every check of ``table`` (``repro_torch.kernels.checks``): the cases of
+    tests/test_kernels.py and the shapes of kernel_bench.py, on the card."""
+    worst = {}
+    cases = table("cuda")
+    for c in cases:
+        _hold(c.label, c.got(), c.want(), c.rtol, c.atol, worst)
+    print(f"{name} vs plain: {len(cases)} cases pass; max |err| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+class Case:
+    """One call of a kernel's path at full width: the kernel's call, its
+    plain version, the library yardsticks by name (none, or the calls that
+    compute the same function, the fastest of which is reported), the
+    operations and bytes the call needs, the peak rate for its type, the
+    tolerance and any notes for its row."""
+
+    def __init__(self, label: str, kernel: Callable, plain: Callable,
+                 libraries: Dict[str, Callable], flops: float, nbytes: float,
+                 dtype, rtol: float, atol: float, notes: Optional[dict] = None):
+        self.label, self.kernel, self.plain = label, kernel, plain
+        self.libraries = libraries
+        self.flops, self.nbytes, self.dtype = flops, nbytes, dtype
+        self.rtol, self.atol, self.notes = rtol, atol, notes or {}
+        self.err = 0.0
+
+
+def _zero_counts(counters) -> None:
+    for mod in counters:
+        mod.launches = 0
+
+
+def _drive(name: str, cases: List[Case], counters, own) -> int:
+    """The path: every count zeroed just before, the kernel's entry point
+    called once per case, counts read just after; then each output is held
+    against its plain version."""
+    _zero_counts(counters)                    # zeroed just before the path
+    outs = [c.kernel() for c in cases]
+    torch.cuda.synchronize()
+    launches = own.launches                   # read just after the path
+    _check(launches == len(cases), f"{name} path: {launches} launches for "
+                                   f"{len(cases)} calls")
+    for c, out in zip(cases, outs):
+        c.err = _hold(c.label, out, c.plain(), c.rtol, c.atol, {})
+        print(f"  {c.label}: max |kernel - plain| {c.err:.3g} "
+              f"(rtol {c.rtol}, atol {c.atol})")
+    print(f"{name} path: launched {launches} times")
+    return launches
+
+
+def _attention_bound(b, hq, hkv, s, sk, d, causal, dtype):
+    pairs = s * (s + 1) // 2 if causal else s * sk      # score entries needed
+    flops = 4 * b * hq * pairs * d                      # q k^T and p v
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = size * (2 * b * hq * s * d + 2 * b * hkv * sk * d)
+    return flops, nbytes
+
+
+# bf16 outputs at full width are held to the plain version rounded to bf16:
+# the two round f32 values about 1e-6 apart, so they differ by at most one
+# bf16 ulp, 2**-7 = 7.8e-3 of the value at the bottom of a binade
+ATTN_BF16_TOL = dict(rtol=8e-3, atol=1e-4)
+
+
+def attention_cases(ops, ref, full_f32) -> List[Case]:
+    """qwen2-0.5b's heads at 4096 tokens.  The library yardstick is SDPA,
+    timed two ways: with ``enable_gqa`` (where this torch has it) and with k
+    and v repeated to the q heads outside the timed call, so that a backend
+    without GQA may take it; the faster is reported."""
+    import torch.nn.functional as F
+    cfg = ATTN_FULL
+    b, hq, hkv, s, d = cfg["b"], cfg["hq"], cfg["hkv"], cfg["s"], cfg["d"]
+    rng = np.random.default_rng(4096)
+    base = [rng.normal(size=(b, hq, s, d)), rng.normal(size=(b, hkv, s, d)),
+            rng.normal(size=(b, hkv, s, d))]
+    try:                                      # enable_gqa: torch >= 2.5
+        probe = torch.zeros(1, 2, 4, 8, device="cuda")
+        F.scaled_dot_product_attention(probe, probe[:, :1], probe[:, :1],
+                                       enable_gqa=True)
+        gqa = True
+    except TypeError:
+        gqa = False
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_cuda(a, dtype) for a in base)
+        kr, vr = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+        for causal in (True, False):
+            flops, nbytes = _attention_bound(b, hq, hkv, s, s, d, causal, dtype)
+
+            def sdpa(k, v, causal=causal, q=q, **kw):
+                def call():
+                    with full_f32():
+                        return F.scaled_dot_product_attention(
+                            q, k, v, is_causal=causal, **kw)
+                return call
+            libraries = {"sdpa repeated kv": sdpa(kr, vr)}
+            if gqa:
+                libraries["sdpa enable_gqa"] = sdpa(k, v, enable_gqa=True)
+            tol = ATTN_BF16_TOL if dtype == torch.bfloat16 else dict(rtol=2e-5, atol=2e-5)
+            cases.append(Case(
+                f"attention {hq}:{hkv}x{s}x{d} causal {causal} "
+                f"{str(dtype).replace('torch.', '')}",
+                lambda q=q, k=k, v=v, c=causal: ops.attention(q, k, v, causal=c),
+                lambda q=q, k=k, v=v, c=causal: ref.attention_ref(q, k, v, causal=c),
+                libraries, flops, nbytes, dtype, **tol))
+    return cases
+
+
+def _scan_bound(b, h, s, dk, dv, chunk, bonus):
+    """(flops, bytes, chunked flops).  The bound counts the step recurrence,
+    the least work the scan needs, per step and head: dk exps, dk*dv decay
+    multiplies, 2*dk*dv for the k v outer product's add and 2*dk*dv for
+    q . h, and in bonus mode 3*dk + 2*dv for (q . (u k)) v.  Bytes: q, k, v,
+    w (and u) read once, o written once, in f32.  The chunked form's count
+    (products with the state, the masked window decay terms of an add, an
+    exp and three multiply-adds, the state update) is what the kernel does,
+    reported beside it."""
+    flops = b * h * s * (dk + 5 * dk * dv + ((3 * dk + 2 * dv) if bonus else 0))
+    nbytes = 4 * (b * h * s * (3 * dk + 2 * dv) + (h * dk if bonus else 0))
+    c = chunk
+    pairs = c * (c - 1) // 2 if bonus else c * (c + 1) // 2
+    per_chunk = (2 * c * dk * dv + 2 * c * dk          # q exp(W) @ h0
+                 + 5 * pairs * dk                       # window decay terms
+                 + 2 * pairs * dv                       # scores @ v
+                 + 2 * c * dk * dv + 2 * c * dk          # k_dec^T @ v
+                 + 2 * dk * dv + 2 * dk)                 # exp(w_total) h0
+    if bonus:
+        per_chunk += 3 * c * dk + 2 * c * dv            # (q u k) v
+    return flops, nbytes, b * h * (s // c) * per_chunk
+
+
+def scan_cases(ops, ref) -> List[Case]:
+    cases = []
+    for label, cfg, mode in (("rwkv6-7b bonus", RWKV_FULL, "bonus"),
+                             ("zamba2-7b inclusive", ZAMBA_FULL, "inclusive")):
+        b, h, s, dk, dv, chunk = (cfg[x] for x in ("b", "h", "s", "dk", "dv", "chunk"))
+        rng = np.random.default_rng(s + h)   # drawn as kernel_bench.py:50-55
+        q = _cuda(rng.normal(size=(b, h, s, dk)))
+        k = _cuda(rng.normal(size=(b, h, s, dk)))
+        v = _cuda(rng.normal(size=(b, h, s, dv)))
+        if mode == "bonus":                  # per-channel decay (RWKV6)
+            w = _cuda(-np.abs(rng.normal(size=(b, h, s, dk))) * 0.2)
+            u = _cuda(rng.normal(size=(h, dk)))
+        else:                                # one decay per head and step,
+            w1 = -np.abs(rng.normal(size=(b, h, s, 1))) * 0.2   # as mamba.py:59-65
+            w = _cuda(np.ascontiguousarray(np.broadcast_to(w1, (b, h, s, dk))))
+            u = None
+        flops, nbytes, chunked = _scan_bound(b, h, s, dk, dv, chunk, mode == "bonus")
+        cases.append(Case(
+            f"scan {label} {b}x{h}x{s}x{dk}/{dv} chunk {chunk}",
+            lambda q=q, k=k, v=v, w=w, u=u, c=chunk, m=mode:
+                ops.decay_scan(q, k, v, w, u=u, chunk=c, diag_mode=m),
+            lambda q=q, k=k, v=v, w=w, u=u, m=mode:
+                ref.ssm_scan_ref(q, k, v, w, u=u, diag_mode=m),
+            {}, flops, nbytes, torch.float32, 1e-4, 1e-4,
+            notes={"chunked_flops": chunked,
+                   "chunked_ops_ms": chunked / PEAK_FLOPS[torch.float32] * 1e3}))
+    return cases
+
+
+def conv_cases(ops, ref, full_f32, frontend, pipeline, torch_backend) -> List[Case]:
+    """The conv of the paper's CNN as the port compiles it (factor 1): its
+    weight from the graph's params, its input from a seed; the torch
+    oracle's conv output of the same graph must agree with the plain one."""
+    import torch.nn.functional as F
+    d = pipeline.compile_model(frontend.paper_cnn(), [(3, 80, 60)], factor=1)
+    conv = next(op for op in d.graph.ops if op.kind == "conv2d")
+    x = _cuda(np.random.default_rng(0).normal(size=(3, 80, 60)))
+    w = _cuda(np.asarray(d.graph.params[conv.inputs[1]]))
+    with full_f32():
+        oracle = torch_backend._op_fn(conv, {conv.inputs[0]: x, conv.inputs[1]: w},
+                                      d.graph)
+    _hold("paper_cnn conv: oracle", oracle, ref.conv2d_ref(x, w), 2e-5, 2e-5, {})
+    cout, cin, kh, kw = w.shape
+    ho, wo = x.shape[1] - kh + 1, x.shape[2] - kw + 1
+    flops = 2 * cout * ho * wo * cin * kh * kw
+    nbytes = 4 * (x.numel() + w.numel() + cout * ho * wo)
+
+    def library():
+        with full_f32():
+            return F.conv2d(x[None], w)[0]
+    return [Case(f"conv paper_cnn {cin}->{cout} 80x60 k5x5 banks {banks}",
+                 lambda banks=banks: ops.conv2d(x, w, banks=banks),
+                 lambda: ref.conv2d_ref(x, w), {"F.conv2d": library}, flops, nbytes,
+                 torch.float32, 2e-5, 2e-5)
+            for banks in CONV_BANKS]
+
+
+def _backend(kernels: List[str]) -> str:
+    """Which SDPA backend a call's device kernel names show: cudnn, flash,
+    mem-efficient, or other (the math backend's GEMMs and softmax, or a
+    library call that is not SDPA)."""
+    text = " ".join(kernels).lower()
+    return ("cudnn" if "cudnn" in text else "flash" if "flash" in text else
+            "mem-efficient" if ("fmha" in text or "efficient" in text) else "other")
+
+
+def phase_path_times(name, route_src, replaces, cases: List[Case], launches,
+                     full_f32) -> dict:
+    """Times at the path's own shapes; one kernels-line entry (sums over
+    the path's calls).  Where a case has several library calls, the one
+    with the least call time is its ``library_ms``."""
+    rows = []
+    total = dict.fromkeys(("ms", "plain_ms", "device_ms", "plain_device_ms"), 0.0)
+    lib_total = {"library_ms": 0.0, "library_device_ms": 0.0}
+    t_ops = t_bytes = 0.0
+    for c in cases:
+        with full_f32():
+            k, p = _times(c.kernel), _times(c.plain)
+            libs = {lab: _times(fn) for lab, fn in c.libraries.items()}
+        for t in libs.values():
+            t["backend"] = _backend(t["kernels"])
+        best = min(libs, key=lambda lab: libs[lab]["ms"]) if libs else None
+        row = {"case": c.label, "ms": k["ms"], "device_ms": k["device_ms"],
+               "plain_ms": p["ms"], "plain_device_ms": p["device_ms"],
+               "library": best,
+               "library_ms": best and libs[best]["ms"],
+               "library_device_ms": best and libs[best]["device_ms"],
+               "library_calls": libs}
+        ops_ms = c.flops / PEAK_FLOPS[c.dtype] * 1e3
+        bytes_ms = c.nbytes / HBM_BYTES_PER_S * 1e3
+        row.update(bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   flops=c.flops, bytes=c.nbytes, max_abs_err=c.err,
+                   rtol=c.rtol, atol=c.atol, **c.notes)
+        rows.append(row)
+        for key in total:
+            total[key] += row[key]
+        if best is not None:
+            lib_total["library_ms"] += row["library_ms"]
+            lib_total["library_device_ms"] += row["library_device_ms"]
+        t_ops, t_bytes = t_ops + ops_ms, t_bytes + bytes_ms
+    print(json.dumps({f"{name}_path_shapes": rows}))
+    has_lib = all(c.libraries for c in cases)
+    return {"name": name, "route": "cuda", "source": route_src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c.err for c in cases),
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_total["library_ms"] if has_lib else None,
+            "device_ms": total["device_ms"],
+            "plain_device_ms": total["plain_device_ms"],
+            "library_device_ms": lib_total["library_device_ms"] if has_lib else None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -391,49 +715,80 @@ def main() -> int:
               f"run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import BankConflictError, cuda_backend, frontend, pipeline
+    from repro_torch.core import (BankConflictError, cuda_backend, frontend,
+                                  pipeline, torch_backend)
     from repro_torch.device import full_f32
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, checks, ops, ref
+    from repro_torch.kernels import banked_conv2d as conv_mod
     from repro_torch.kernels import banked_matmul as banked
+    from repro_torch.kernels import flash_attention as attn_mod
+    from repro_torch.kernels import ssm_scan as scan_mod
+    counters = (banked, conv_mod, attn_mod, scan_mod)
 
     failures = []
-    kernels = None
-    shapes = launches = ran = None
+    kernels = []
+    results = {}
+
+    def main_path():
+        _zero_counts(counters)
+        return phase_main_path(frontend, pipeline, cuda_backend, banked,
+                               BankConflictError)
+
+    # each new kernel's path: (name, source, TPU kernel, its module, its cases)
+    paths = [
+        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:58", attn_mod,
+         lambda: attention_cases(ops, ref, full_f32)),
+        ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
+         "src/repro/kernels/ssm_scan.py:110", scan_mod,
+         lambda: scan_cases(ops, ref)),
+        ("banked_conv2d", "src/repro_torch/csrc/banked_conv2d.cu",
+         "src/repro/kernels/banked_conv2d.py:43", conv_mod,
+         lambda: conv_cases(ops, ref, full_f32, frontend, pipeline, torch_backend)),
+    ]
     phases = [
         ("card and build", lambda: phase_card_and_build(_build)),
         ("kernel vs plain", lambda: phase_kernel_vs_plain(ops, ref)),
-        ("main path", lambda: phase_main_path(
-            frontend, pipeline, cuda_backend, banked, BankConflictError)),
+        ("attention vs plain", lambda: phase_vs_plain("attention", checks.attention)),
+        ("scan vs plain", lambda: phase_vs_plain("scan", checks.decay_scan)),
+        ("conv vs plain", lambda: phase_vs_plain("conv", checks.conv2d)),
+        ("main path", main_path),
     ]
-    for label, fn in phases:
+    for name, _, _, mod, make in paths:
+        def drive(name=name, mod=mod, make=make):
+            cases = make()
+            return cases, _drive(name, cases, counters, mod)
+        phases.append((f"{name} path", drive))
+
+    def run(label, fn):
         t0 = time.perf_counter()
         print(f"== {label}", flush=True)
         try:
-            result = fn()
+            results[label] = fn()
         except Exception as e:              # every phase runs; any failure fails
             failures.append(f"{label}: {e}")
             traceback.print_exc()
-            if label == "card and build":
-                break
-            continue
-        if label == "main path":
-            shapes, launches, ran = result
+            return False
         print(f"   ({time.perf_counter() - t0:.1f}s)", flush=True)
-    if shapes is not None:
-        print("== times", flush=True)
-        try:
-            kernels = phase_times(ops, ref, full_f32, shapes, launches)
-        except Exception as e:
-            failures.append(f"times: {e}")
-            traceback.print_exc()
-        print("== profile", flush=True)
-        try:
-            phase_profile(cuda_backend, ran)
-        except Exception as e:
-            failures.append(f"profile: {e}")
-            traceback.print_exc()
-    if kernels is not None:
-        print(json.dumps({"kernels": [kernels]}))
+        return True
+
+    for label, fn in phases:
+        if not run(label, fn) and label == "card and build":
+            break
+    if "main path" in results:
+        shapes, launches, ran = results["main path"]
+        if run("times", lambda: phase_times(ops, ref, full_f32, shapes, launches)):
+            kernels.append(results["times"])
+        run("profile", lambda: phase_profile(cuda_backend, ran))
+    for name, src, replaces, _, _ in paths:
+        if f"{name} path" not in results:
+            continue
+        cases, launches = results[f"{name} path"]
+        if run(f"{name} times", lambda: phase_path_times(
+                name, src, replaces, cases, launches, full_f32)):
+            kernels.append(results[f"{name} times"])
+    if kernels:
+        print(json.dumps({"kernels": kernels}))
     if failures:
         for f in failures:
             print(f"FAILED {f}", file=sys.stderr)

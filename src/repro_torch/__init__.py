@@ -21,5 +21,8 @@ for module and is held against it on the same inputs.  Ground rules:
 
 Ported so far: the paper's compile flow (``core``) with its torch oracle
 (``core.torch_backend``) and the banked-kernel backend
-(``core.cuda_backend``) over ``kernels.banked_matmul``.
+(``core.cuda_backend``) over ``kernels.banked_matmul``; and the other three
+kernels of ``repro.kernels`` behind ``kernels.ops``: ``attention``
+(``kernels.flash_attention``), ``decay_scan`` (``kernels.ssm_scan``) and
+``conv2d`` (``kernels.banked_conv2d``).
 """

@@ -4,10 +4,14 @@ Each ``csrc/<name>.cu`` exports plain C functions.  ``nvcc`` compiles it for
 ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the repository
 root; the hash covers the sources and the flags, so an edited source builds
 anew.  ``build`` starts one ``nvcc`` per source, all together, and waits for
-them.  A failed build raises: nothing falls back.
+them.  A failed build raises: nothing falls back.  ``function`` binds one
+exported function with its C types; ``launch`` calls a kernel's function on
+the current stream of its tensors' card and raises on the CUDA error it
+returns.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -15,7 +19,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -24,6 +30,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 log: Dict[str, str] = {}   # nvcc's output (ptxas register/smem report) per source
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -77,3 +84,24 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return _libs[name]
+
+
+def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+    """``symbol`` of ``csrc/<name>.cu``'s library with its C types (pointers
+    and the stream as ``c_void_p``), building the library if needed."""
+    if (name, symbol) not in _fns:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        _fns[name, symbol] = fn
+    return _fns[name, symbol]
+
+
+def launch(fn, device: torch.device, *args, what: str) -> None:
+    """Call ``fn(*args, stream)`` on the current stream of ``device`` (made
+    the current device for the call if it is not); raise ``RuntimeError``
+    if it returns a CUDA error, as a refused launch does."""
+    switch = device.index not in (None, torch.cuda.current_device())
+    with torch.cuda.device(device) if switch else contextlib.nullcontext():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")

@@ -25,7 +25,6 @@ no tensor cores, TMA or ``wgmma``; bf16 inputs are widened with
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -36,7 +35,6 @@ from . import _build
 launches = 0   # kernel launches made by ``banked_matmul`` in this process
 
 DTYPES = (torch.float32, torch.bfloat16)
-_fn = None
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,15 +78,10 @@ def check_operands(a: torch.Tensor, b: torch.Tensor,
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("banked_matmul").banked_matmul
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_int64] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    return _build.function("banked_matmul", "banked_matmul",
+                           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.c_int64] * 4 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
 
 
 def banked_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -112,16 +105,10 @@ def banked_matmul(a: torch.Tensor, b: torch.Tensor,
                          f"{m}x{k} @ {k}x{n}")
     bm, bn, bk = block or derive_block(m, n, k, banks)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    # the launch goes to the current device; switch only when it differs
-    switch = a.device.index not in (None, torch.cuda.current_device())
-    with torch.cuda.device(a.device) if switch else contextlib.nullcontext():
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                       a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-                       bm, bn, bk, int(a.dtype == torch.bfloat16),
-                       int(out_dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"banked_matmul launch failed: CUDA error {rc} "
-                           f"({m}x{k} @ {k}x{n}, block {(bm, bn, bk)})")
+    _build.launch(_kernel(), a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  m, n, k, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+                  bm, bn, bk, int(a.dtype == torch.bfloat16),
+                  int(out_dtype == torch.bfloat16),
+                  what=f"banked_matmul ({m}x{k} @ {k}x{n}, block {(bm, bn, bk)})")
     launches += 1
     return out

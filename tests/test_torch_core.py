@@ -13,11 +13,12 @@ from repro.core import frontend as ref_frontend  # noqa: E402
 from repro.core import pipeline as ref_pipeline  # noqa: E402
 from repro_torch.core import BankConflictError, frontend, pipeline  # noqa: E402
 
-# the two smallest designs of benchmarks/calyx_bench.py, and the paper's FFNN
+# the four designs of benchmarks/calyx_bench.py (its 48-point matrix)
 DESIGNS = {
     "matmul": (lambda fe: fe.Linear(8, 8, bias=False), (4, 8)),
     "conv2d": (lambda fe: fe.Conv2d(2, 2, 3, 3), (2, 6, 6)),
     "ffnn": (lambda fe: fe.paper_ffnn(), (1, 64)),
+    "attention": (lambda fe: fe.MultiheadAttention(8, 2), (4, 8)),
 }
 
 

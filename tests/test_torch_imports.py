@@ -15,6 +15,9 @@ _PROBE = """
 import json, sys
 import repro_torch, repro_torch.core, repro_torch.core.cuda_backend
 import repro_torch.kernels.ops, repro_torch.kernels.banked_matmul
+import repro_torch.kernels.flash_attention, repro_torch.kernels.ssm_scan
+import repro_torch.kernels.banked_conv2d, repro_torch.kernels.ref
+import repro_torch.kernels.checks
 import repro_torch.core.torch_backend, repro_torch.device
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
