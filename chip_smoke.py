@@ -9,19 +9,25 @@ toolkit.  Phases:
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
    CUDA kernel of the port from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together);
-2. holds each kernel against its plain PyTorch version on the card: the
-   banked matmul at the shapes of ``tests/test_kernels.py`` and at 256^3 and
-   1024^3; attention, the decay scan and the conv at every case of that
-   file's ``TestFlashAttention``, ``TestDecayScan`` and ``TestBankedConv2d``
-   and at the shapes of ``benchmarks/kernel_bench.py`` (the tables of
-   ``repro_torch.kernels.checks``, which the card tests share);
+   and, where the toolkit has ``cuobjdump``, counts the tensor-core
+   instructions (HMMA, HGMMA) in the attention kernel's SASS;
+2. holds each kernel against its plain PyTorch version on the card at every
+   case of ``tests/test_kernels.py``'s ``TestBankedMatmul``,
+   ``TestFlashAttention``, ``TestDecayScan`` and ``TestBankedConv2d``, the
+   shapes of ``benchmarks/kernel_bench.py``, every matmul of the main path
+   and the boundaries of the kernels' own variants (the tables of
+   ``repro_torch.kernels.checks``, which the card tests share); then calls
+   each redesigned kernel twice on the same inputs (the CNN's product, a
+   split-K product, full-width attention in f32 and bf16) and requires the
+   same bits;
 3. drives the main path, the paper's flow: compiles the paper's FFNN, MHA
    and CNN at full width with the port, runs each design on the card through
    the banked-kernel backend (``execute_graph_cuda``) and checks it against
    the torch oracle on the card and the affine interpreter (``d.run``); the
    launch counts are zeroed just before and read just after, and must equal
-   the graphs' matmul counts; the designs that conflict on banks must still
-   raise ``BankConflictError``;
+   the graphs' matmul counts; the products must be the 17 of
+   ``checks.MAIN_PATH_MATMULS``, each planned for the skinny variant; the
+   designs that conflict on banks must still raise ``BankConflictError``;
 4. drives the kernels' own entry points, ``ops.attention``,
    ``ops.decay_scan`` and ``ops.conv2d``, at full width, each path with
    every launch count zeroed just before and read just after: attention at
@@ -39,7 +45,10 @@ toolkit.  Phases:
    scan): each call with CUDA events over back-to-back calls, and its
    device time alone with ``torch.profiler``;
 6. times each design's banked-backend run on the host clock and takes its
-   device time by kernel from ``torch.profiler``.
+   device time by kernel from ``torch.profiler``;
+7. times the host's share of one wrapper call (``ops.matmul`` at a main-path
+   shape, ``ops.attention`` at a small one): enqueue time over many calls,
+   and the ten costliest functions of a ``cProfile`` of them.
 
 Prints one JSON ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a card, outside a checkout of
@@ -61,10 +70,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# (M, K, N) sweeps of tests/test_kernels.py, at that file's tolerances
-TEST_SHAPES = [(8, 16, 8), (32, 64, 48), (48, 64, 40), (1, 64, 48),
-               (17, 33, 9), (128, 128, 128)]
-TEST_BANKS = [(1, 1, 1), (2, 2, 2), (4, 2, 1), (1, 4, 4)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DESIGN_TOL = 1e-4            # tests/test_core_sim.py: design vs oracle
 
@@ -82,8 +87,8 @@ HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCES = ["banked_matmul", "banked_conv2d", "flash_attention", "ssm_scan"]
 
 # full width: heads of the configurations the repo registers
-# (src/repro/configs/qwen2_0_5b.py, rwkv6_7b.py, zamba2_7b.py), 4096 tokens
-ATTN_FULL = dict(b=1, hq=14, hkv=2, s=4096, d=64)            # qwen2-0.5b
+# (src/repro/configs/rwkv6_7b.py, zamba2_7b.py; qwen2-0.5b's attention heads
+# are checks.QWEN2_0_5B_ATTENTION), 4096 tokens
 RWKV_FULL = dict(b=1, h=64, s=4096, dk=64, dv=64, chunk=64)  # rwkv6-7b, rwkv.py:77
 ZAMBA_FULL = dict(b=1, h=112, s=4096, dk=64, dv=64, chunk=64)  # zamba2-7b, mamba.py:66
 CONV_BANKS = [(1, 1), (2, 2), (4, 2)]      # as tests/test_kernels.py
@@ -106,17 +111,6 @@ def _excess(got: torch.Tensor, want: torch.Tensor, rtol: float,
     diff = (g - w).abs()
     atol = rtol if atol is None else atol
     return float(diff.max()), float((diff - atol - rtol * w.abs()).max())
-
-
-def _linear_weight(rng, k: int, n: int) -> np.ndarray:
-    """A (K, N) weight drawn as ``frontend.Linear`` draws it (fan-in scaled).
-
-    With unit-variance B the f32 rounding of a K = 1024 sum alone is about
-    2e-5 rms, the tolerance itself; a Linear's weights keep the products'
-    sum at unit scale.
-    """
-    bound = (1.0 / max(k, 1)) ** 0.5
-    return rng.uniform(-bound, bound, size=(k, n)).astype(np.float32)
 
 
 def _time_ms(fn, reps: int = 7, iters: int = 50, warm: bool = True) -> float:
@@ -221,55 +215,22 @@ def phase_card_and_build(build):
             if any(w in line for w in ("entry function", "registers", "spill",
                                        "error")):
                 print(f"  {name}: {line.strip()}")
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        print("SASS: no cuobjdump in the toolkit; tensor-core use not shown")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.lib_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts = {op: sum(f" {op}" in line for line in sass.splitlines())
+              for op in ("HMMA", "HGMMA")}
+    print(f"SASS flash_attention: {counts['HMMA']} HMMA, {counts['HGMMA']} HGMMA "
+          f"instructions")
+    _check(counts["HMMA"] + counts["HGMMA"] > 0,
+           "flash_attention's SASS holds no tensor-core instruction")
 
 
-def phase_kernel_vs_plain(ops, ref):
-    dev = torch.device("cuda")
-    cases = []   # (label, a, b, banks, out_dtype)
-    for dtype in (torch.float32, torch.bfloat16):
-        for m, k, n in TEST_SHAPES:
-            rng = np.random.default_rng(m * 1000 + k * 10 + n)
-            a = torch.tensor(rng.normal(size=(m, k)), dtype=dtype, device=dev)
-            b = torch.tensor(rng.normal(size=(k, n)), dtype=dtype, device=dev)
-            cases.append((f"{m}x{k}x{n} {dtype}", a, b, (2, 2, 2), None))
-    rng = np.random.default_rng(7)
-    a = torch.tensor(rng.normal(size=(64, 96)), dtype=torch.float32, device=dev)
-    b = torch.tensor(rng.normal(size=(96, 64)), dtype=torch.float32, device=dev)
-    for banks in TEST_BANKS:
-        cases.append((f"64x96x64 banks{banks}", a, b, banks, None))
-    rng = np.random.default_rng(0)
-    for s in (256, 1024):
-        a32 = torch.tensor(rng.normal(size=(s, s)), dtype=torch.float32, device=dev)
-        b32 = torch.tensor(_linear_weight(rng, s, s), device=dev)
-        for f in ((1, 2, 4) if s == 256 else (1,)):
-            cases.append((f"{s}^3 f32 banks{f}", a32, b32, (f, f, f), None))
-    a16 = torch.tensor(rng.normal(size=(1024, 1024)), dtype=torch.bfloat16, device=dev)
-    b16 = torch.tensor(rng.normal(size=(1024, 1024)), dtype=torch.bfloat16, device=dev)
-    cases.append(("1024^3 bf16->f32", a16, b16, (1, 1, 1), torch.float32))
-
-    worst = {}
-    for label, a, b, banks, out_dtype in cases:
-        got = ops.matmul(a, b, banks=banks, out_dtype=out_dtype)
-        want = ref.matmul_ref(a, b, out_dtype)
-        torch.cuda.synchronize()
-        tol = TOL[a.dtype]
-        err, excess = _excess(got, want, tol)
-        _check(got.dtype == (out_dtype or a.dtype) and got.shape == want.shape,
-               f"{label}: got {got.dtype} {tuple(got.shape)}")
-        _check(bool(torch.isfinite(got.float()).all()), f"{label}: not finite")
-        _check(excess <= 0, f"{label}: max |kernel - plain| {err:.3g} "
-                            f"beyond {tol} (rtol = atol)")
-        key = str(a.dtype).replace("torch.", "")
-        worst[key] = max(worst.get(key, 0.0), err)
-    ones = ops.matmul(torch.ones(8, 512, dtype=torch.bfloat16, device=dev),
-                      torch.ones(512, 8, dtype=torch.bfloat16, device=dev),
-                      out_dtype=torch.float32)
-    _check(bool((ones == 512.0).all()), "bf16 ones at K=512: not exactly 512.0")
-    print(f"kernel vs plain: {len(cases) + 1} cases pass; max |err| "
-          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
-
-
-def phase_main_path(frontend, pipeline, cuda_backend, banked, BankConflictError):
+def phase_main_path(frontend, pipeline, cuda_backend, banked, checks,
+                    BankConflictError):
     """Returns the main path's matmuls {(m, k, n, factor, b_is_view): count},
     its launch count and the designs it ran [(label, design, inputs)]."""
     rng = np.random.default_rng(0)
@@ -339,7 +300,13 @@ def phase_main_path(frontend, pipeline, cuda_backend, banked, BankConflictError)
     total = banked.launches                   # read just after the path
     _check(total == expected, f"main path: {total} launches, {expected} matmuls")
     _check(total > 0, "main path launched banked_matmul no time")
-    print(f"main path: banked_matmul launched {total} times")
+    _check(sorted(shapes) == sorted(checks.MAIN_PATH_MATMULS),
+           f"main path's matmuls {sorted(shapes)} are not checks.MAIN_PATH_MATMULS")
+    for m, k, n, f, _ in shapes:
+        _check(banked.plan(m, n, k, banked.derive_block(m, n, k, (f, f, f))).skinny,
+               f"{m}x{k}x{n} f{f}: not planned for the skinny variant")
+    print(f"main path: banked_matmul launched {total} times, over "
+          f"{len(shapes)} distinct products, all of the skinny variant")
     return shapes, total, ran
 
 
@@ -372,7 +339,7 @@ def phase_profile(cuda_backend, ran):
     print(json.dumps({"main_path_profile": rows}))
 
 
-def phase_times(ops, ref, full_f32, shapes, launches):
+def phase_times(ops, ref, full_f32, checks, banked, shapes, launches):
     """Kernel vs plain at the main path's shapes, then times; the kernels line."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -381,7 +348,7 @@ def phase_times(ops, ref, full_f32, shapes, launches):
                            "plain_device_ms", "library_device_ms"), 0.0)
     for (m, k, n, f, view), count in sorted(shapes.items()):
         a = torch.tensor(rng.normal(size=(m, k)), dtype=torch.float32, device=dev)
-        w = torch.tensor(_linear_weight(rng, k, n), device=dev)
+        w = torch.tensor(checks.linear_weight(rng, k, n), device=dev)
         b = w.t().contiguous().t() if view else w      # a transposed view, as kh.t()
         banks = (f, f, f)
         got, want = ops.matmul(a, b, banks=banks), ref.matmul_ref(a, b)
@@ -400,8 +367,11 @@ def phase_times(ops, ref, full_f32, shapes, launches):
         for key, t in row.items():
             total[key] += count * t
         fl, by = _bound(m, k, n, torch.float32, torch.float32)
+        p = banked.plan(m, n, k, banked.derive_block(m, n, k, banks))
         rows.append({"m": m, "k": k, "n": n, "banks": f, "b_view": view,
-                     "count": count, **row, "max_abs_err": err})
+                     "count": count, "variant": "skinny" if p.skinny else "tiled",
+                     "grid": p.grid, "threads": p.threads, **row,
+                     "max_abs_err": err})
         flops, nbytes = flops + count * fl, nbytes + count * by
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -412,7 +382,7 @@ def phase_times(ops, ref, full_f32, shapes, launches):
                           (1024, torch.float32, torch.float32),
                           (1024, torch.bfloat16, torch.float32)):
         a = torch.tensor(rng.normal(size=(s, s)), dtype=dtype, device=dev)
-        b = torch.tensor(_linear_weight(rng, s, s), dtype=dtype, device=dev)
+        b = torch.tensor(checks.linear_weight(rng, s, s), dtype=dtype, device=dev)
         with full_f32():
             row = {"shape": f"{s}^3", "dtype": str(dtype).replace("torch.", ""),
                    "ms": _time_ms(lambda: ops.matmul(a, b, out_dtype=out)),
@@ -469,6 +439,58 @@ def phase_vs_plain(name: str, table) -> None:
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
+def phase_determinism(checks) -> None:
+    """Each redesigned kernel gives the same bits on two calls with the same
+    inputs (fixed-order reductions, no float atomics)."""
+    for label, call in checks.deterministic("cuda"):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        _check(torch.equal(first, second), f"{label}: two calls differ")
+        print(f"  {label}: bitwise equal over two calls")
+
+
+def phase_host_cost(ops, checks) -> None:
+    """The host's share of a wrapper call: enqueue time per call over 2000
+    back-to-back calls (the card keeps up: these calls take a few us on it),
+    and the costliest functions of a cProfile of them."""
+    import cProfile
+    import io
+    import pstats
+    rng = np.random.default_rng(5)
+    m, k, n, f, _ = checks.MAIN_PATH_MATMULS[-1]
+    a, b = _cuda(rng.normal(size=(m, k))), _cuda(checks.linear_weight(rng, k, n))
+    q, kk, v = (_cuda(rng.normal(size=(1, h, 64, 64))) for h in (4, 2, 2))
+    calls = {f"ops.matmul {m}x{k}x{n} f{f}": lambda: ops.matmul(a, b, banks=(f, f, f)),
+             f"torch.matmul {m}x{k}x{n}": lambda: torch.matmul(a, b),
+             "ops.attention 4:2x64x64": lambda: ops.attention(
+                 q, kk, v, block_q=64, block_k=64)}
+    rows = {}
+    for label, fn in calls.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        rows[label] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    print(json.dumps({"host_us_per_call": rows}))
+    for label, fn in calls.items():
+        if label.startswith("torch"):
+            continue
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(2000):
+            fn()
+        prof.disable()
+        torch.cuda.synchronize()
+        out = io.StringIO()
+        pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(10)
+        lines = [ln for ln in out.getvalue().splitlines() if ln.strip()]
+        print(f"cProfile of 2000 calls of {label}:")
+        print("\n".join("  " + ln for ln in lines[3:16]))
+
+
 class Case:
     """One call of a kernel's path at full width: the kernel's call, its
     plain version, the library yardsticks by name (none, or the calls that
@@ -523,13 +545,13 @@ def _attention_bound(b, hq, hkv, s, sk, d, causal, dtype):
 ATTN_BF16_TOL = dict(rtol=8e-3, atol=1e-4)
 
 
-def attention_cases(ops, ref, full_f32) -> List[Case]:
+def attention_cases(ops, ref, full_f32, checks) -> List[Case]:
     """qwen2-0.5b's heads at 4096 tokens.  The library yardstick is SDPA,
     timed two ways: with ``enable_gqa`` (where this torch has it) and with k
     and v repeated to the q heads outside the timed call, so that a backend
     without GQA may take it; the faster is reported."""
     import torch.nn.functional as F
-    cfg = ATTN_FULL
+    cfg = checks.QWEN2_0_5B_ATTENTION
     b, hq, hkv, s, d = cfg["b"], cfg["hq"], cfg["hkv"], cfg["s"], cfg["d"]
     rng = np.random.default_rng(4096)
     base = [rng.normal(size=(b, hq, s, d)), rng.normal(size=(b, hkv, s, d)),
@@ -731,14 +753,14 @@ def main() -> int:
 
     def main_path():
         _zero_counts(counters)
-        return phase_main_path(frontend, pipeline, cuda_backend, banked,
+        return phase_main_path(frontend, pipeline, cuda_backend, banked, checks,
                                BankConflictError)
 
     # each new kernel's path: (name, source, TPU kernel, its module, its cases)
     paths = [
         ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:58", attn_mod,
-         lambda: attention_cases(ops, ref, full_f32)),
+         lambda: attention_cases(ops, ref, full_f32, checks)),
         ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
          "src/repro/kernels/ssm_scan.py:110", scan_mod,
          lambda: scan_cases(ops, ref)),
@@ -748,10 +770,11 @@ def main() -> int:
     ]
     phases = [
         ("card and build", lambda: phase_card_and_build(_build)),
-        ("kernel vs plain", lambda: phase_kernel_vs_plain(ops, ref)),
+        ("matmul vs plain", lambda: phase_vs_plain("matmul", checks.matmul)),
         ("attention vs plain", lambda: phase_vs_plain("attention", checks.attention)),
         ("scan vs plain", lambda: phase_vs_plain("scan", checks.decay_scan)),
         ("conv vs plain", lambda: phase_vs_plain("conv", checks.conv2d)),
+        ("determinism", lambda: phase_determinism(checks)),
         ("main path", main_path),
     ]
     for name, _, _, mod, make in paths:
@@ -777,7 +800,8 @@ def main() -> int:
             break
     if "main path" in results:
         shapes, launches, ran = results["main path"]
-        if run("times", lambda: phase_times(ops, ref, full_f32, shapes, launches)):
+        if run("times", lambda: phase_times(ops, ref, full_f32, checks, banked,
+                                            shapes, launches)):
             kernels.append(results["times"])
         run("profile", lambda: phase_profile(cuda_backend, ran))
     for name, src, replaces, _, _ in paths:
@@ -787,6 +811,7 @@ def main() -> int:
         if run(f"{name} times", lambda: phase_path_times(
                 name, src, replaces, cases, launches, full_f32)):
             kernels.append(results[f"{name} times"])
+    run("host cost", lambda: phase_host_cost(ops, checks))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if failures:

@@ -11,7 +11,6 @@ returns.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,14 +18,19 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Sequence, Tuple, Union
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# Extra -D defines for every source, from the environment: ``PHASE_CLOCKS``
+# compiles in the kernels' per-phase clock64() counts (csrc/phase_clocks.cuh,
+# scripts/torch_phase_clocks.py).  They are part of the flags, so such a
+# build gets libraries of its own.
+DEFINES = tuple(f"-D{d}" for d in os.environ.get("REPRO_TORCH_CUDA_DEFINES", "").split())
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v") + DEFINES
 
 log: Dict[str, str] = {}   # nvcc's output (ptxas register/smem report) per source
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -96,12 +100,31 @@ def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
     return _fns[name, symbol]
 
 
-def launch(fn, device: torch.device, *args, what: str) -> None:
+# The current stream's handle of a device: torch's raw getter returns it as
+# an int, where ``current_stream().cuda_stream`` first builds a Stream
+# object, a cost paid on every launch; the public call stands in where a
+# torch build lacks the getter.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(fn, device: torch.device, *args,
+           what: Union[str, Callable[[], str]]) -> None:
     """Call ``fn(*args, stream)`` on the current stream of ``device`` (made
     the current device for the call if it is not); raise ``RuntimeError``
-    if it returns a CUDA error, as a refused launch does."""
-    switch = device.index not in (None, torch.cuda.current_device())
-    with torch.cuda.device(device) if switch else contextlib.nullcontext():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if it returns a CUDA error, as a refused launch does.  ``what`` names the
+    call in that error (a callable is called only then)."""
+    current = torch.cuda.current_device()
+    if device.index in (None, current):
+        rc = fn(*args, _stream(current))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, _stream(device.index))
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{what() if callable(what) else what} launch failed: "
+                           f"CUDA error {rc}")

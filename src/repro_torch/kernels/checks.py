@@ -1,9 +1,11 @@
 """The kernels' check cases, defined once.
 
 Every case of the reference's ``tests/test_kernels.py`` classes
-``TestFlashAttention``, ``TestDecayScan`` and ``TestBankedConv2d`` (labelled
-``tests: ...``) and the shapes of ``benchmarks/kernel_bench.py`` (labelled
-``bench: ...``), with the same numpy seeds, draws and tolerances.  Each
+``TestBankedMatmul``, ``TestFlashAttention``, ``TestDecayScan`` and
+``TestBankedConv2d`` (labelled ``tests: ...``) and the shapes of
+``benchmarks/kernel_bench.py`` (labelled ``bench: ...``), with the same
+numpy seeds, draws and tolerances; then the cases that cover the kernels'
+own variants and their boundaries (labelled by what they cover).  Each
 ``Check`` holds one call of a wrapper in ``ops`` (``got``) and what it must
 agree with (``want``: the plain version in ``ref``, or for the scan's chunk
 test the same wrapper at another chunk).  ``chip_smoke.py`` and the card
@@ -12,11 +14,12 @@ tensors ``got`` takes the plain version, as every wrapper does.
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from . import banked_matmul as _bm
 from . import ops, ref
 
 
@@ -38,6 +41,145 @@ def _on(device, x: np.ndarray, dtype=torch.float32) -> torch.Tensor:
 
 def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+MATMUL_SHAPES = [(8, 16, 8), (32, 64, 48), (48, 64, 40), (1, 64, 48), (17, 33, 9),
+                 (128, 128, 128)]                    # (M, K, N), tests/test_kernels.py
+MATMUL_BANKS = [(1, 1, 1), (2, 2, 2), (4, 2, 1), (1, 4, 4)]
+
+# Every distinct matmul of the paper's designs as the port compiles them (FFNN
+# f1/f2/f4, MHA f1/f2, CNN f1): (M, K, N, factor, B a transposed view).
+# tests/test_torch_kernels.py holds this list against the compiled graphs.
+MAIN_PATH_MATMULS = [
+    (1, 48, 4, 1, False), (1, 48, 4, 2, False), (1, 48, 4, 4, False),
+    (1, 64, 48, 1, False), (1, 64, 48, 2, False), (1, 64, 48, 4, False),
+    (1, 5472, 2, 1, False),
+    (8, 8, 21, 1, False), (8, 8, 21, 2, False),
+    (8, 21, 8, 1, True), (8, 21, 8, 2, True),
+    (8, 21, 42, 1, False), (8, 21, 42, 2, False),
+    (8, 42, 21, 1, False), (8, 42, 21, 2, False),
+    (8, 42, 42, 1, False), (8, 42, 42, 2, False),
+]
+
+# qwen2-0.5b's attention heads (src/repro/configs/qwen2_0_5b.py) at 4096 tokens
+QWEN2_0_5B_ATTENTION = dict(b=1, hq=14, hkv=2, s=4096, d=64)
+
+
+def linear_weight(rng, k: int, n: int) -> np.ndarray:
+    """A (K, N) weight drawn as ``frontend.Linear`` draws it (fan-in scaled).
+
+    With unit-variance B the f32 rounding of a K = 1024 sum alone is about
+    2e-5 rms, the tolerance itself; a Linear's weights keep the products'
+    sum at unit scale.
+    """
+    bound = (1.0 / max(k, 1)) ** 0.5
+    return rng.uniform(-bound, bound, size=(k, n)).astype(np.float32)
+
+
+def _matmul_check(label, a, b, banks, out_dtype=None) -> Check:
+    tol = TOL[a.dtype]
+    return Check(label,
+                 lambda: ops.matmul(a, b, banks=banks, out_dtype=out_dtype),
+                 lambda: ref.matmul_ref(a, b, out_dtype), tol, tol)
+
+
+def matmul(device) -> List[Check]:
+    """TestBankedMatmul's shapes at every bank plan with B as a transposed
+    view (``kh.t()`` in the MHA reaches the kernel so) and at banks (2,2,2)
+    contiguous, its bank partitions and its f32 accumulation of bf16; every
+    matmul of the main path, with B a view where the path has one; then the
+    skinny variant's boundaries (the dispatch threshold M = 16 and one above
+    it, split-K, K a multiple of no tile, bf16) and the tiled variant at
+    256^3 and 1024^3."""
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, n in MATMUL_SHAPES:
+            rng = np.random.default_rng(m * 1000 + k * 10 + n)
+            a = _on(device, rng.normal(size=(m, k)), dtype)
+            bt = _on(device, rng.normal(size=(n, k)), dtype).t()
+            b = _on(device, rng.normal(size=(k, n)), dtype)
+            for banks in MATMUL_BANKS:
+                out.append(_matmul_check(
+                    f"tests: {m}x{k}x{n} banks {banks} B view {_dtype_name(dtype)}",
+                    a, bt, banks))
+            out.append(_matmul_check(
+                f"tests: {m}x{k}x{n} banks (2, 2, 2) {_dtype_name(dtype)}",
+                a, b, (2, 2, 2)))
+    rng = np.random.default_rng(7)
+    a = _on(device, rng.normal(size=(64, 96)))
+    b = _on(device, rng.normal(size=(96, 64)))
+    for banks in MATMUL_BANKS:
+        out.append(_matmul_check(f"tests: 64x96x64 banks {banks}", a, b, banks))
+    ones = torch.ones(8, 512, dtype=torch.bfloat16, device=device)
+    out.append(Check(
+        "tests: bf16 ones K 512 accumulate in f32 (exact)",
+        lambda: ops.matmul(ones, ones.t(), out_dtype=torch.float32),
+        lambda: torch.full((8, 8), 512.0, device=device), 0.0, 0.0))
+
+    rng = np.random.default_rng(1)
+    for m, k, n, f, view in MAIN_PATH_MATMULS:
+        a = _on(device, rng.normal(size=(m, k)))
+        w = linear_weight(rng, k, n)
+        b = _on(device, w.T).t() if view else _on(device, w)
+        out.append(_matmul_check(
+            f"main path: {m}x{k}x{n} f{f}{' B view' if view else ''}", a, b, (f, f, f)))
+
+    boundary = [  # (label, m, k, n, banks, dtype, out_dtype)
+        ("M at the skinny threshold", _bm.SKINNY_MAX_M, 300, 40, (1, 1, 1),
+         torch.float32, None),
+        ("M one above it (tiled)", _bm.SKINNY_MAX_M + 1, 300, 40, (1, 1, 1),
+         torch.float32, None),
+        ("split-K", 1, 65536, 8, (1, 1, 1), torch.float32, None),
+        ("split-K bf16", 1, 65536, 8, (1, 1, 1), torch.bfloat16, None),
+        ("split-K, rows and banks", 12, 40000, 24, (2, 2, 2), torch.float32, None),
+        ("K a multiple of no tile", 5, 1001, 13, (2, 2, 2), torch.float32, None),
+        ("skinny bf16", 8, 5472, 24, (1, 1, 1), torch.bfloat16, None),
+        ("skinny bf16 -> f32", 3, 777, 50, (1, 2, 1), torch.bfloat16, torch.float32),
+        ("tiled bf16, tensor cores, ragged K and N", 200, 1000, 136, (2, 2, 2),
+         torch.bfloat16, torch.float32),
+    ]
+    for label, m, k, n, banks, dtype, out_dtype in boundary:
+        rng = np.random.default_rng(m * 7 + k + n)
+        a = _on(device, rng.normal(size=(m, k)), dtype)
+        b = _on(device, linear_weight(rng, k, n), dtype)
+        out.append(_matmul_check(f"{label}: {m}x{k}x{n} banks {banks} "
+                                 f"{_dtype_name(dtype)}", a, b, banks, out_dtype))
+    rng = np.random.default_rng(24)                 # B a transposed view, K-major
+    a = _on(device, rng.normal(size=(136, 520)), torch.bfloat16)
+    bt = _on(device, linear_weight(rng, 520, 264).T, torch.bfloat16).t()
+    out.append(_matmul_check("tiled bf16, tensor cores, B view: 136x520x264 banks "
+                             "(1, 1, 1)", a, bt, (1, 1, 1)))
+
+    rng = np.random.default_rng(0)
+    for s, factors in ((256, (1, 2, 4)), (1024, (1,))):
+        a = _on(device, rng.normal(size=(s, s)))
+        b = _on(device, linear_weight(rng, s, s))
+        for f in factors:
+            out.append(_matmul_check(f"tiled: {s}^3 banks {(f, f, f)}", a, b, (f, f, f)))
+    a = _on(device, rng.normal(size=(1024, 1024)), torch.bfloat16)
+    b = _on(device, rng.normal(size=(1024, 1024)), torch.bfloat16)
+    out.append(_matmul_check("tiled: 1024^3 bf16 -> f32", a, b, (1, 1, 1),
+                             torch.float32))
+    return out
+
+
+def deterministic(device) -> List[Tuple[str, Callable[[], torch.Tensor]]]:
+    """Calls of the redesigned kernels that must give the same bits twice:
+    the CNN's product, a split-K product, and full-width attention at
+    qwen2-0.5b's heads in each dtype."""
+    rng = np.random.default_rng(3)
+    a1 = _on(device, rng.normal(size=(1, 5472)))
+    b1 = _on(device, linear_weight(rng, 5472, 2))
+    a2 = _on(device, rng.normal(size=(1, 65536)))
+    b2 = _on(device, linear_weight(rng, 65536, 8))
+    cfg = QWEN2_0_5B_ATTENTION
+    q, k, v = (_on(device, rng.normal(size=(cfg["b"], h, cfg["s"], cfg["d"])))
+               for h in (cfg["hq"], cfg["hkv"], cfg["hkv"]))
+    q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+    return [("matmul 1x5472x2 (the CNN's)", lambda: ops.matmul(a1, b1)),
+            ("matmul 1x65536x8 (split-K)", lambda: ops.matmul(a2, b2)),
+            ("attention qwen2-0.5b causal f32", lambda: ops.attention(q, k, v)),
+            ("attention qwen2-0.5b causal bf16", lambda: ops.attention(q16, k16, v16))]
 
 
 def attention(device) -> List[Check]:
@@ -80,6 +222,22 @@ def attention(device) -> List[Check]:
         "bench: gqa 4:2 S 256 D 64",
         lambda: ops.attention(bq_, bk_, bv_, causal=True, block_q=64, block_k=64),
         lambda: ref.attention_ref(bq_, bk_, bv_, causal=True), 2e-5, 2e-5))
+    # the kernel's own boundaries: head dims padded to its tiles (the bf16
+    # tensor-core path pads to 16, the f32 path to 32), a sequence that is a
+    # multiple of no tile, and a causal grid whose q tiles run heaviest first
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(f"head dim {d}", 128, d, True, 128) for d in (32, 64, 128)]
+        cases += [("S 100 non-causal", 100, 64, False, 128),
+                  ("causal S 192", 192, 64, True, 64)]
+        for label, s, d, causal, blk in cases:
+            rng = np.random.default_rng(s * 1000 + d)
+            qkv = [_on(device, rng.normal(size=(1, h, s, d)), dtype) for h in (4, 2, 2)]
+            out.append(Check(
+                f"{label}: gqa 4:2 S {s} D {d} {_dtype_name(dtype)}",
+                lambda qkv=qkv, c=causal, blk=blk: ops.attention(
+                    *qkv, causal=c, block_q=blk, block_k=blk),
+                lambda qkv=qkv, c=causal: ref.attention_ref(*qkv, causal=c),
+                TOL[dtype], TOL[dtype]))
     return out
 
 

@@ -8,19 +8,25 @@ is ``csrc/flash_attention.cu``, built for ``sm_90a`` at first use and bound
 with ``ctypes``.
 
 Layout: q (B, Hq, S, D); k/v (B, Hkv, Sk, D) with Hq % Hkv == 0; out in q's
-dtype.  One block per (b*Hq, 64-row q tile), one thread per query row; a
-loop inside the block walks the 64-key tiles in order, keeping m, l and the
-accumulator in f32 registers.  The kv head is ``h // group`` in the pointer
-arithmetic (no repeated copy).  The causal mask is the reference kernel's
-top-left ``q_id >= k_id`` with a -1e30 fill; tiles wholly above the
-diagonal are skipped.  ``block_q``/``block_k`` are checked as the reference
-checks them; the kernel's own 64 x 64 tile gives the same result up to
-rounding.
+dtype.  One block per (b*Hq, q tile of 64 rows in f32, 128 in bf16); a
+loop inside the block walks the kv tiles in order, the next one copied by
+``cp.async`` while the current one computes, keeping m, l and the
+accumulator in f32 registers.  bf16 runs both products on the tensor cores
+(``wgmma``, two warpgroups of 64 rows, f32 accumulation, P as two bf16
+terms hi + lo); f32 runs them as register-tiled FMA products (no TF32).
+The kv head is ``h // group`` in the pointer arithmetic (no repeated
+copy).  The causal mask is the reference kernel's top-left
+``q_id >= k_id`` with a -1e30 fill, on the tiles that cross the diagonal;
+tiles wholly above it are skipped, and the causal q tiles launch heaviest
+first.  ``block_q``/``block_k`` are checked as the reference checks them;
+the kernel's own tiles give the same result up to rounding.  The checks run
+once per call signature (shapes, dtypes, devices, flags), whose kernel
+arguments are kept.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -64,19 +70,12 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return bq, bk
 
 
-def _kernel():
-    return _build.function("flash_attention", "flash_attention",
-                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                           + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_fn = None
+# per call signature: the kernel's int and float arguments
+_prepared: Dict[tuple, tuple] = {}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: Optional[float] = None,
-                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """Attention on the card.  ``q``, ``k``, ``v`` are CUDA tensors of one
-    dtype (made contiguous if they are not); head dim at most 128.  Raises
-    if the kernel does not build or its launch is refused."""
-    global launches
+def _prepare(q, k, v, causal, scale, block_q, block_k) -> tuple:
     check_operands(q, k, v, causal, block_q, block_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA tensors; got {q.device}")
@@ -85,11 +84,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention takes head dims up to {MAX_HEAD_DIM}; got {d}")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    # rows are copied 16 bytes at a time where D fills whole 16-byte chunks
+    chunked = d % (16 // q.element_size()) == 0
+    return (b, hq, hkv, s, sk, d, scale, int(causal),
+            int(q.dtype == torch.bfloat16)), chunked
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Attention on the card.  ``q``, ``k``, ``v`` are CUDA tensors of one
+    dtype (made contiguous if they are not); head dim at most 128.  Raises
+    if the kernel does not build or its launch is refused."""
+    global launches, _fn
+    key = (q.shape, k.shape, v.shape, q.dtype, k.dtype, v.dtype, q.device,
+           k.device, v.device, causal, scale, block_q, block_k)
+    prepared = _prepared.get(key)
+    if prepared is None:
+        prepared = _prepared[key] = _prepare(q, k, v, causal, scale, block_q, block_k)
+    args, chunked = prepared
+    if _fn is None:
+        _fn = _build.function("flash_attention", "flash_attention",
+                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                              + [ctypes.c_float] + [ctypes.c_int] * 3
+                              + [ctypes.c_void_p])
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    _build.launch(_kernel(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, hq, hkv, s, sk, d, scale, int(causal),
-                  int(q.dtype == torch.bfloat16),
-                  what=f"flash_attention (q {tuple(q.shape)}, k {tuple(k.shape)})")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    vec = int(chunked and (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16 == 0)
+    _build.launch(_fn, q.device, *ptrs, *args, vec,
+                  what=lambda: f"flash_attention (q {tuple(q.shape)}, "
+                               f"k {tuple(k.shape)})")
     launches += 1
     return out

@@ -4,11 +4,10 @@
 
 Imports neither JAX nor ``repro``, so it runs where only the port is
 installed.  ``chip_smoke.py`` makes the same checks and more; both take the
-attention, scan and conv cases from ``repro_torch.kernels.checks``, whose
-tables are also run through the plain versions on the CPU here.
+matmul, attention, scan and conv cases and the determinism calls from
+``repro_torch.kernels.checks``, whose tables are also run through the plain
+versions on the CPU here.
 """
-import itertools
-
 import numpy as np
 import pytest
 
@@ -18,46 +17,12 @@ from repro_torch.kernels import banked_conv2d as bc  # noqa: E402
 from repro_torch.kernels import checks  # noqa: E402
 from repro_torch.kernels import banked_matmul as bm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
-
-TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
-       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
-SHAPES = [(8, 16, 8), (32, 64, 48), (48, 64, 40), (1, 64, 48), (17, 33, 9),
-          (128, 128, 128)]
-BANKS = [(1, 1, 1), (2, 2, 2), (4, 2, 1), (1, 4, 4)]
 
 
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs these checks there")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_the_card(dtype):
-    """Every shape and bank plan of the CPU tests, B as a transposed view."""
-    _card()
-    before = bm.launches
-    for (m, k, n), banks in itertools.product(SHAPES, BANKS):
-        rng = np.random.default_rng(m * 1000 + k * 10 + n)
-        a = torch.tensor(rng.normal(size=(m, k)), dtype=dtype, device="cuda")
-        b = torch.tensor(rng.normal(size=(n, k)), dtype=dtype, device="cuda").t()
-        out = ops.matmul(a, b, banks=banks)
-        np.testing.assert_allclose(out.float().cpu().numpy(),
-                                   ref.matmul_ref(a, b).float().cpu().numpy(),
-                                   **TOL[dtype])
-    torch.cuda.synchronize()
-    assert bm.launches - before == len(SHAPES) * len(BANKS)
-
-
-@pytest.mark.cuda
-def test_bf16_accumulates_in_f32_on_the_card():
-    _card()
-    out = ops.matmul(torch.ones(8, 512, dtype=torch.bfloat16, device="cuda"),
-                     torch.ones(512, 8, dtype=torch.bfloat16, device="cuda"),
-                     out_dtype=torch.float32)
-    assert bool((out == 512.0).all())
 
 
 def _hold_all(checks, module):
@@ -73,6 +38,38 @@ def _hold_all(checks, module):
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    want.float().cpu().numpy(),
                                    rtol=c.rtol, atol=c.atol, err_msg=c.label)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_card():
+    """Every case of ``checks.matmul``: TestBankedMatmul's shapes and bank
+    plans (B as a transposed view too), every matmul of the main path, and
+    both variants at their boundaries (split-K included)."""
+    _card()
+    _hold_all(checks.matmul("cuda"), bm)
+
+
+@pytest.mark.cuda
+def test_main_path_products_take_the_skinny_variant_on_the_card():
+    """The main path's products run the skinny variant and agree with the
+    plain version; the plan's choice is the one the CPU tests hold."""
+    _card()
+    cases = [c for c in checks.matmul("cuda") if c.label.startswith("main path")]
+    assert len(cases) == len(checks.MAIN_PATH_MATMULS)
+    for m, k, n, f, _ in checks.MAIN_PATH_MATMULS:
+        assert bm.plan(m, n, k, bm.derive_block(m, n, k, (f, f, f))).skinny
+    _hold_all(cases, bm)
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_are_deterministic_on_the_card():
+    """Two calls with the same inputs give the same bits: the CNN's product,
+    a split-K product and full-width attention in f32 and bf16."""
+    _card()
+    for label, call in checks.deterministic("cuda"):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), label
 
 
 @pytest.mark.cuda
@@ -106,11 +103,11 @@ def test_conv2d_matches_plain_on_the_card():
     _hold_all(checks.conv2d("cuda"), bc)
 
 
-@pytest.mark.parametrize("table", ["attention", "decay_scan", "conv2d"])
+@pytest.mark.parametrize("table", ["matmul", "attention", "decay_scan", "conv2d"])
 def test_check_tables_hold_on_the_cpu(table):
     """The shared check tables are well formed: on CPU tensors every wrapper
     takes its plain version, launches nothing, and meets ``want``."""
-    counters = (fa, ss, bc)
+    counters = (bm, fa, ss, bc)
     before = [m.launches for m in counters]
     cases = getattr(checks, table)("cpu")
     assert len({c.label for c in cases}) == len(cases)
