@@ -18,8 +18,8 @@ toolkit.  Phases:
    and the boundaries of the kernels' own variants (the tables of
    ``repro_torch.kernels.checks``, which the card tests share); then calls
    each redesigned kernel twice on the same inputs (the CNN's product, a
-   split-K product, full-width attention in f32 and bf16) and requires the
-   same bits;
+   split-K product, full-width attention in f32 and bf16, both full-width
+   scans, the paper's conv) and requires the same bits;
 3. drives the main path, the paper's flow: compiles the paper's FFNN, MHA
    and CNN at full width with the port, runs each design on the card through
    the banked-kernel backend (``execute_graph_cuda``) and checks it against
@@ -34,7 +34,8 @@ toolkit.  Phases:
    qwen2-0.5b's heads (14 q, 2 kv, head dim 64) over 4096 tokens, causal
    and not, f32 and bf16; the RWKV6 bonus scan at rwkv6-7b's (64 heads of
    64) and the Mamba2 inclusive scan at zamba2-7b's (112 heads of 64,
-   state 64), 4096 tokens at chunk 64; the conv of the paper's CNN as the
+   state 64), 4096 tokens at chunk 64 (each call three launches of the
+   scan's kernels, counted as one); the conv of the paper's CNN as the
    port compiles it, at banks (1,1), (2,2) and (4,2); each output is held
    against the plain version (and the conv against the torch oracle);
 5. at each path's own shapes, holds each kernel against its plain version
@@ -86,11 +87,6 @@ HBM_BYTES_PER_S = 3.35e12
 
 KERNEL_SOURCES = ["banked_matmul", "banked_conv2d", "flash_attention", "ssm_scan"]
 
-# full width: heads of the configurations the repo registers
-# (src/repro/configs/rwkv6_7b.py, zamba2_7b.py; qwen2-0.5b's attention heads
-# are checks.QWEN2_0_5B_ATTENTION), 4096 tokens
-RWKV_FULL = dict(b=1, h=64, s=4096, dk=64, dv=64, chunk=64)  # rwkv6-7b, rwkv.py:77
-ZAMBA_FULL = dict(b=1, h=112, s=4096, dk=64, dv=64, chunk=64)  # zamba2-7b, mamba.py:66
 CONV_BANKS = [(1, 1), (2, 2), (4, 2)]      # as tests/test_kernels.py
 
 
@@ -131,45 +127,78 @@ def _time_ms(fn, reps: int = 7, iters: int = 50, warm: bool = True) -> float:
     return statistics.median(times)
 
 
-def _device_events(prof) -> dict:
-    """{name: ms} of the device-side events (kernels, copies) of a profile.
+def _device_events(prof, counts: Optional[dict] = None) -> dict:
+    """{name: ms} of the device-side events (kernels, copies) of a profile;
+    ``counts``, if given, receives {name: events}.
 
     A host op's own device time repeats its kernels', so host ops are left
     out; CUPTI's buffer requests are the profiler's, not the program's.
+    Events are read one by one, and only those with a duration are counted:
+    from the per-name totals and counts of ``key_averages`` one window of
+    twenty ``F.conv2d`` calls read half the time the other windows read.
     """
     device = {}
-    for ev in prof.key_averages():
+    for ev in prof.events():
         if (ev.device_type != torch.autograd.DeviceType.CUDA
                 or ev.key.startswith("Activity Buffer")):
             continue
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0)
+        us = ev.time_range.elapsed_us()
         if us > 0:
             device[ev.key] = device.get(ev.key, 0.0) + us / 1e3
+            if counts is not None:
+                counts[ev.key] = counts.get(ev.key, 0) + 1
     return device
 
 
-def _device_profile(fn, iters: int = 20, warm: bool = True):
-    """(mean device time of one call, its device kernels by time): the
-    kernels and copies on the card, from ``torch.profiler``.  At the main
-    path's shapes a call is far shorter than its launch from Python, which
-    CUDA events also count."""
+def _device_profile(fn, iters: int = 20):
+    """(mean device time of one call, {device kernel: mean ms a call},
+    costliest first): the kernels and copies on the card, from
+    ``torch.profiler``.  At the main path's shapes a call is far shorter
+    than its launch from Python, which CUDA events also count.
+
+    The profiler may drop a window's events (it kept 19 of 20 calls' tiny
+    kernels in most windows of one run, none of two calls' in another, and
+    none of one plain scan call's first fill), so a window is at least two
+    calls, a kernel's time a call is its mean over the events kept, times
+    its events a call, and a window counts only when it holds every kernel
+    any window of the same calls held: two windows that kept events at
+    least, more when they differ, five windows at most, and then the call
+    fails.  An empty window is the profiler's (the first of a process often
+    is), not the call's."""
     from torch.profiler import ProfilerActivity, profile
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+
+    def window(n: int):
         torch.cuda.synchronize()
-    events = _device_events(prof)
-    names = [k for k, _ in sorted(events.items(), key=lambda kv: -kv[1])]
-    return sum(events.values()) / iters, names
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        counts = {}
+        return _device_events(prof, counts), counts
+
+    fn()
+    n = max(2, iters)
+    windows, seen, full = [], set(), []
+    for _ in range(5):
+        events, counts = window(n)
+        if not events:
+            continue
+        windows.append((events, counts))
+        seen |= set(events)
+        full = [w for w in windows if set(w[0]) == seen]
+        if len(windows) >= 2 and full:
+            break
+    _check(len(windows) >= 2 and bool(full),
+           f"five profiler windows of {n} calls: {len(windows)} kept events, "
+           f"none of them every kernel of {sorted(seen)}")
+    events, counts = full[-1]
+    by_kernel = {k: ms / counts[k] * max(1, round(counts[k] / n))
+                 for k, ms in sorted(events.items(), key=lambda kv: -kv[1])}
+    return sum(by_kernel.values()), by_kernel
 
 
-def _device_ms(fn, iters: int = 20, warm: bool = True) -> float:
-    return _device_profile(fn, iters, warm)[0]
+def _device_ms(fn, iters: int = 20) -> float:
+    return _device_profile(fn, iters)[0]
 
 
 def _times(fn) -> dict:
@@ -185,9 +214,9 @@ def _times(fn) -> dict:
     one = time.perf_counter() - t0
     iters = max(1, min(50, int(0.2 / max(one, 1e-6))))
     reps = 7 if iters > 1 else 3
-    device_ms, names = _device_profile(fn, max(1, min(20, iters)), warm=False)
+    device_ms, by_kernel = _device_profile(fn, max(1, min(20, iters)))
     return {"ms": _time_ms(fn, reps, iters, warm=False), "device_ms": device_ms,
-            "kernels": [n[:100] for n in names[:3]]}
+            "kernels": {n[:100]: ms for n, ms in list(by_kernel.items())[:3]}}
 
 
 def _bound(m: int, k: int, n: int, dtype, out_dtype):
@@ -612,22 +641,16 @@ def _scan_bound(b, h, s, dk, dv, chunk, bonus):
     return flops, nbytes, b * h * (s // c) * per_chunk
 
 
-def scan_cases(ops, ref) -> List[Case]:
+def scan_cases(ops, ref, checks) -> List[Case]:
+    """The two full-width scans of ``checks`` (rwkv6-7b bonus, zamba2-7b
+    inclusive), drawn by ``checks.full_width_scan``.  Each call runs the
+    kernel's three launches (chunk states, state pass, chunk outputs)."""
     cases = []
-    for label, cfg, mode in (("rwkv6-7b bonus", RWKV_FULL, "bonus"),
-                             ("zamba2-7b inclusive", ZAMBA_FULL, "inclusive")):
+    for label, cfg in (("rwkv6-7b bonus", checks.RWKV6_7B_SCAN),
+                       ("zamba2-7b inclusive", checks.ZAMBA2_7B_SCAN)):
         b, h, s, dk, dv, chunk = (cfg[x] for x in ("b", "h", "s", "dk", "dv", "chunk"))
-        rng = np.random.default_rng(s + h)   # drawn as kernel_bench.py:50-55
-        q = _cuda(rng.normal(size=(b, h, s, dk)))
-        k = _cuda(rng.normal(size=(b, h, s, dk)))
-        v = _cuda(rng.normal(size=(b, h, s, dv)))
-        if mode == "bonus":                  # per-channel decay (RWKV6)
-            w = _cuda(-np.abs(rng.normal(size=(b, h, s, dk))) * 0.2)
-            u = _cuda(rng.normal(size=(h, dk)))
-        else:                                # one decay per head and step,
-            w1 = -np.abs(rng.normal(size=(b, h, s, 1))) * 0.2   # as mamba.py:59-65
-            w = _cuda(np.ascontiguousarray(np.broadcast_to(w1, (b, h, s, dk))))
-            u = None
+        mode = cfg["mode"]
+        q, k, v, w, u = checks.full_width_scan("cuda", cfg)
         flops, nbytes, chunked = _scan_bound(b, h, s, dk, dv, chunk, mode == "bonus")
         cases.append(Case(
             f"scan {label} {b}x{h}x{s}x{dk}/{dv} chunk {chunk}",
@@ -637,7 +660,8 @@ def scan_cases(ops, ref) -> List[Case]:
                 ref.ssm_scan_ref(q, k, v, w, u=u, diag_mode=m),
             {}, flops, nbytes, torch.float32, 1e-4, 1e-4,
             notes={"chunked_flops": chunked,
-                   "chunked_ops_ms": chunked / PEAK_FLOPS[torch.float32] * 1e3}))
+                   "chunked_ops_ms": chunked / PEAK_FLOPS[torch.float32] * 1e3,
+                   "exps": b * h * (s // chunk) * chunk * (chunk + 1) // 2 * dk}))
     return cases
 
 
@@ -669,7 +693,7 @@ def conv_cases(ops, ref, full_f32, frontend, pipeline, torch_backend) -> List[Ca
             for banks in CONV_BANKS]
 
 
-def _backend(kernels: List[str]) -> str:
+def _backend(kernels) -> str:
     """Which SDPA backend a call's device kernel names show: cudnn, flash,
     mem-efficient, or other (the math backend's GEMMs and softmax, or a
     library call that is not SDPA)."""
@@ -695,6 +719,7 @@ def phase_path_times(name, route_src, replaces, cases: List[Case], launches,
             t["backend"] = _backend(t["kernels"])
         best = min(libs, key=lambda lab: libs[lab]["ms"]) if libs else None
         row = {"case": c.label, "ms": k["ms"], "device_ms": k["device_ms"],
+               "device_kernels": k["kernels"],
                "plain_ms": p["ms"], "plain_device_ms": p["device_ms"],
                "library": best,
                "library_ms": best and libs[best]["ms"],
@@ -763,7 +788,7 @@ def main() -> int:
          lambda: attention_cases(ops, ref, full_f32, checks)),
         ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
          "src/repro/kernels/ssm_scan.py:110", scan_mod,
-         lambda: scan_cases(ops, ref)),
+         lambda: scan_cases(ops, ref, checks)),
         ("banked_conv2d", "src/repro_torch/csrc/banked_conv2d.cu",
          "src/repro/kernels/banked_conv2d.py:43", conv_mod,
          lambda: conv_cases(ops, ref, full_f32, frontend, pipeline, torch_backend)),

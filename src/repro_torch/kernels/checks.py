@@ -64,6 +64,36 @@ MAIN_PATH_MATMULS = [
 # qwen2-0.5b's attention heads (src/repro/configs/qwen2_0_5b.py) at 4096 tokens
 QWEN2_0_5B_ATTENTION = dict(b=1, hq=14, hkv=2, s=4096, d=64)
 
+# one layer's scan at a 4096-token prefill, at the heads of the configurations
+# the repo registers (src/repro/configs/rwkv6_7b.py, zamba2_7b.py): rwkv6-7b's
+# bonus scan (64 heads of 64, chunk 64 as rwkv.py:77) and zamba2-7b's
+# inclusive one (112 heads of 64, state 64, chunk 64 as mamba.py:66)
+RWKV6_7B_SCAN = dict(b=1, h=64, s=4096, dk=64, dv=64, chunk=64, mode="bonus")
+ZAMBA2_7B_SCAN = dict(b=1, h=112, s=4096, dk=64, dv=64, chunk=64, mode="inclusive")
+
+# the paper's CNN conv (3 -> 8 channels, 80 x 60, 5 x 5)
+PAPER_CNN_CONV = dict(cin=3, cout=8, h=80, w=60, kh=5, kw=5)
+
+
+def full_width_scan(device, cfg: dict):
+    """(q, k, v, w, u) of a full-width scan, drawn as kernel_bench.py:50-55
+    draws them: a per-channel decay and a bonus ``u`` in bonus mode (RWKV6);
+    one decay per head and step broadcast over dk, and no ``u``, in
+    inclusive mode (Mamba2, as mamba.py:59-65)."""
+    b, h, s, dk, dv = (cfg[x] for x in ("b", "h", "s", "dk", "dv"))
+    rng = np.random.default_rng(s + h)
+    q = _on(device, rng.normal(size=(b, h, s, dk)))
+    k = _on(device, rng.normal(size=(b, h, s, dk)))
+    v = _on(device, rng.normal(size=(b, h, s, dv)))
+    if cfg["mode"] == "bonus":
+        w = _on(device, -np.abs(rng.normal(size=(b, h, s, dk))) * 0.2)
+        u = _on(device, rng.normal(size=(h, dk)))
+    else:
+        w1 = -np.abs(rng.normal(size=(b, h, s, 1))) * 0.2
+        w = _on(device, np.ascontiguousarray(np.broadcast_to(w1, (b, h, s, dk))))
+        u = None
+    return q, k, v, w, u
+
 
 def linear_weight(rng, k: int, n: int) -> np.ndarray:
     """A (K, N) weight drawn as ``frontend.Linear`` draws it (fan-in scaled).
@@ -165,8 +195,9 @@ def matmul(device) -> List[Check]:
 
 def deterministic(device) -> List[Tuple[str, Callable[[], torch.Tensor]]]:
     """Calls of the redesigned kernels that must give the same bits twice:
-    the CNN's product, a split-K product, and full-width attention at
-    qwen2-0.5b's heads in each dtype."""
+    the CNN's product, a split-K product, full-width attention at
+    qwen2-0.5b's heads in each dtype, both full-width scans and the paper's
+    conv at banks (1, 1)."""
     rng = np.random.default_rng(3)
     a1 = _on(device, rng.normal(size=(1, 5472)))
     b1 = _on(device, linear_weight(rng, 5472, 2))
@@ -179,7 +210,24 @@ def deterministic(device) -> List[Tuple[str, Callable[[], torch.Tensor]]]:
     return [("matmul 1x5472x2 (the CNN's)", lambda: ops.matmul(a1, b1)),
             ("matmul 1x65536x8 (split-K)", lambda: ops.matmul(a2, b2)),
             ("attention qwen2-0.5b causal f32", lambda: ops.attention(q, k, v)),
-            ("attention qwen2-0.5b causal bf16", lambda: ops.attention(q16, k16, v16))]
+            ("attention qwen2-0.5b causal bf16", lambda: ops.attention(q16, k16, v16))
+            ] + [(f"scan {name} {cfg['mode']}", _full_scan_call(device, cfg))
+                 for name, cfg in (("rwkv6-7b", RWKV6_7B_SCAN),
+                                   ("zamba2-7b", ZAMBA2_7B_SCAN))] + [
+            ("conv paper_cnn banks (1, 1)", _paper_conv_call(device, rng))]
+
+
+def _full_scan_call(device, cfg: dict) -> Callable[[], torch.Tensor]:
+    q, k, v, w, u = full_width_scan(device, cfg)
+    return lambda: ops.decay_scan(q, k, v, w, u=u, chunk=cfg["chunk"],
+                                  diag_mode=cfg["mode"])
+
+
+def _paper_conv_call(device, rng) -> Callable[[], torch.Tensor]:
+    c = PAPER_CNN_CONV
+    x = _on(device, rng.normal(size=(c["cin"], c["h"], c["w"])))
+    w = _on(device, rng.normal(size=(c["cout"], c["cin"], c["kh"], c["kw"])))
+    return lambda: ops.conv2d(x, w, banks=(1, 1))
 
 
 def attention(device) -> List[Check]:
@@ -307,7 +355,10 @@ CONV_BANKS = [(1, 1), (2, 2), (4, 2)]
 
 
 def conv2d(device) -> List[Check]:
-    """Every case of TestBankedConv2d."""
+    """Every case of TestBankedConv2d; then the kernel's own variants: many
+    blocks, inputs wide enough that ``plan`` halves the block to fit its
+    window in shared memory (down to 32 threads of 2 x 32 outputs), taps at
+    run time (4x4, 1x1, 7x3), bf16."""
     out = []
     for cin, cout, h, wd, kh, kw in ((3, 8, 16, 12, 5, 5), (2, 4, 9, 9, 3, 3),
                                      (1, 2, 7, 5, 3, 2), (3, 8, 80, 60, 5, 5)):
@@ -327,4 +378,34 @@ def conv2d(device) -> List[Check]:
             f"tests: {_dtype_name(dtype)}",
             lambda x=x, w=w: ops.conv2d(x, w, banks=(2, 2)),
             lambda x=x, w=w: ref.conv2d_ref(x, w), TOL[dtype], TOL[dtype]))
+    for label, (cin, cout, h, wd, kh, kw), banks, dtype in CONV_VARIANTS:
+        rng = np.random.default_rng(cout * 1000 + h + kh)
+        x = _on(device, rng.normal(size=(cin, h, wd)), dtype)
+        w = _on(device, rng.normal(size=(cout, cin, kh, kw)) / (cin * kh * kw) ** 0.5,
+                dtype)
+        out.append(Check(
+            f"{label}: {cin}->{cout} {h}x{wd} k{kh}x{kw} banks {banks} "
+            f"{_dtype_name(dtype)}",
+            lambda x=x, w=w, b=banks: ops.conv2d(x, w, banks=b),
+            lambda x=x, w=w: ref.conv2d_ref(x, w), TOL[dtype], TOL[dtype]))
     return out
+
+
+# (label, (Cin, Cout, H, W, kh, kw), banks, dtype): the conv kernel's own
+# variants; ``tests/test_torch_conv.py`` holds each plan's block size, named
+# in the label, at the H100's 232,448 bytes of shared memory a block
+CONV_VARIANTS = [
+    ("many blocks, 256-thread", (8, 64, 130, 130, 3, 3), (1, 1), torch.float32),
+    ("many blocks, banks, 256-thread", (8, 64, 130, 130, 3, 3), (4, 2), torch.float32),
+    ("wide input, 256-thread", (64, 8, 40, 40, 5, 5), (1, 1), torch.float32),
+    ("wide input, 128-thread", (128, 8, 40, 40, 3, 3), (1, 1), torch.float32),
+    ("wide input, 64-thread", (128, 4, 24, 24, 5, 5), (2, 2), torch.float32),
+    ("wide input, 32-thread", (240, 4, 20, 20, 3, 3), (2, 2), torch.float32),
+    ("taps at run time, 256-thread", (2, 3, 20, 20, 4, 4), (1, 1), torch.float32),
+    ("taps at run time, 1x1, 256-thread", (3, 5, 9, 7, 1, 1), (2, 2), torch.float32),
+    ("taps at run time, 7x3, 256-thread", (8, 64, 100, 40, 7, 3), (1, 1), torch.float32),
+    ("taps at run time, wide input, 128-thread", (100, 6, 30, 30, 4, 4), (1, 1),
+     torch.float32),
+    ("many blocks, 256-thread", (8, 64, 130, 130, 5, 5), (1, 1), torch.bfloat16),
+    ("wide input, 128-thread", (128, 8, 40, 40, 3, 3), (1, 1), torch.bfloat16),
+]

@@ -64,7 +64,8 @@ def test_main_path_products_take_the_skinny_variant_on_the_card():
 @pytest.mark.cuda
 def test_redesigned_kernels_are_deterministic_on_the_card():
     """Two calls with the same inputs give the same bits: the CNN's product,
-    a split-K product and full-width attention in f32 and bf16."""
+    a split-K product, full-width attention in f32 and bf16, both full-width
+    scans and the paper's conv."""
     _card()
     for label, call in checks.deterministic("cuda"):
         first, second = call(), call()
@@ -97,8 +98,33 @@ def test_decay_scan_state_carries_on_the_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inclusive", "bonus"])
+def test_decay_scan_state_pass_over_many_chunks_on_the_card(mode):
+    """S 4096 at chunk 8: the state pass carries the state over 512 chunks
+    (a slow decay keeps each token's trace alive across dozens of them);
+    the kernel agrees with the step recurrence at the scan's 1e-4."""
+    _card()
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(4096 + 8)
+    q, k = (torch.tensor(rng.normal(size=(1, 2, 4096, 8)), dtype=torch.float32,
+                         device="cuda") for _ in range(2))
+    v = torch.tensor(rng.normal(size=(1, 2, 4096, 8)), dtype=torch.float32,
+                     device="cuda")
+    w = torch.tensor(-np.abs(rng.normal(size=(1, 2, 4096, 8))) * 0.02,
+                     dtype=torch.float32, device="cuda")
+    u = torch.tensor(rng.normal(size=(2, 8)), dtype=torch.float32, device="cuda")
+    before = ss.launches
+    out = ops.decay_scan(q, k, v, w, u=u, chunk=8, diag_mode=mode)
+    torch.cuda.synchronize()
+    assert ss.launches - before == 1
+    want = ref.ssm_scan_ref(q, k, v, w, u=u, diag_mode=mode)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_conv2d_matches_plain_on_the_card():
-    """Every case of TestBankedConv2d."""
+    """Every case of TestBankedConv2d and the kernel's own variants."""
     _card()
     _hold_all(checks.conv2d("cuda"), bc)
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro_torch.core import frontend, pipeline  # noqa: E402
 from repro_torch.kernels import banked_conv2d as bc  # noqa: E402
+from repro_torch.kernels import checks  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, jnp.float32, dict(rtol=2e-5, atol=2e-5)),
@@ -125,3 +126,68 @@ def test_cpu_path_counts_no_launch():
     before = bc.launches
     ops.conv2d(torch.ones(2, 6, 6), torch.ones(2, 2, 3, 3), banks=(2, 2))
     assert bc.launches == before == 0
+
+
+H100_SMEM = 232448     # the H100's opt-in shared memory a block, bytes
+
+
+def _assert_plan_covers(cin, cout, h, w, kh, kw, banks):
+    """Every output once; no block crosses a bank tile's bounds; the
+    block's window fits in the card's shared memory."""
+    hout, wout = h - kh + 1, w - kw + 1
+    p = bc.plan(cout, hout, wout, banks, cin, kh, kw, H100_SMEM)
+    assert (p.rows, p.bw) in bc.BLOCKS and p.threads == p.rows * p.bw // bc.ROWS
+    assert bc.smem_bytes(cin, kh, kw, p.rows, p.bw) <= H100_SMEM
+    count = np.zeros((cout, hout, wout), np.int32)
+    for o0, o1, r0, r1, c0, c1 in bc.block_tiles(p, cout, hout, wout):
+        assert o1 - o0 == 1 and r1 - r0 <= p.rows and c1 - c0 <= p.bw
+        assert o0 // p.bc == (o1 - 1) // p.bc, (o0, o1)     # one channel bank
+        assert r0 // p.bh == (r1 - 1) // p.bh, (r0, r1)     # one row bank
+        count[o0:o1, r0:r1, c0:c1] += 1
+    assert (count == 1).all()
+    return p
+
+
+@pytest.mark.parametrize("cin,cout,h,w,kh,kw", SHAPES)
+@pytest.mark.parametrize("banks", BANKS)
+def test_block_plan_covers_each_output_once(cin, cout, h, w, kh, kw, banks):
+    """TestBankedConv2d's shapes x bank plans: the kernel's blocks cover
+    each output once and stay inside one bank tile."""
+    p = _assert_plan_covers(cin, cout, h, w, kh, kw, banks)
+    assert (p.bc, p.bh) == bc.bank_tiles(cout, h - kh + 1, banks)
+
+
+@pytest.mark.parametrize("case", range(len(checks.CONV_VARIANTS)))
+def test_block_plan_of_the_kernels_variants(case):
+    """The variants the card checks (``checks.CONV_VARIANTS``) cover their
+    outputs once and take the block size their label names."""
+    label, (cin, cout, h, w, kh, kw), banks, _ = checks.CONV_VARIANTS[case]
+    p = _assert_plan_covers(cin, cout, h, w, kh, kw, banks)
+    assert f"{p.threads}-thread" in label, (label, p)
+
+
+def test_wide_input_halves_the_block_until_its_window_fits():
+    """At 3x3 taps the block shrinks as the input widens; it never shrinks
+    while the larger block fits; past the smallest block the plan raises.
+    The 8 x 64 block takes up to 86 channels, the 2 x 32 one 400."""
+    seen = []
+    for cin in (3, 64, 86, 87, 128, 200, 240, 400):
+        p = bc.plan(8, 38, 38, (1, 1), cin, 3, 3, H100_SMEM)
+        i = bc.BLOCKS.index((p.rows, p.bw))
+        assert all(bc.smem_bytes(cin, 3, 3, *b) > H100_SMEM for b in bc.BLOCKS[:i])
+        seen.append(p.threads)
+    assert seen == sorted(seen, reverse=True) and seen[0] == 256 and seen[-1] == 32
+    assert seen[2:4] == [256, 128]                          # 86 fits, 87 does not
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.plan(8, 38, 38, (1, 1), 401, 3, 3, H100_SMEM)
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.plan(8, 36, 36, (1, 1), 242, 5, 5, H100_SMEM)
+
+
+def test_paper_layer_spreads_over_the_card():
+    """The paper's layer (3 -> 8 channels, 8 x 76 x 56 outputs) at every
+    bank plan: 80 blocks of one channel, 8 x 64 outputs, 256 threads."""
+    for banks in BANKS:
+        p = bc.plan(8, 76, 56, banks, 3, 5, 5, H100_SMEM)
+        assert (p.rows, p.bw, p.threads) == (8, 64, 256)
+        assert len(list(bc.block_tiles(p, 8, 76, 56))) == 80

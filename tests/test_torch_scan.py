@@ -151,3 +151,126 @@ def test_cpu_path_counts_no_launch():
     ops.decay_scan(x, x, x, x, chunk=4)
     ops.decay_scan(x, x, x, x, u=torch.zeros(2, 4), chunk=8, diag_mode="bonus")
     assert ss.launches == before == 0
+
+
+# ---------------------------------------------------------------------------
+# The card's three-pass decomposition (csrc/ssm_scan.cu), emulated in plain
+# torch: each chunk's own state contribution and decay for all chunks at
+# once, then the state pass over the chunks in order, then each chunk's
+# output from the state it enters with.  The same sums as the kernel: window
+# decays as running sums over their own windows (cumsum of the gated w, never
+# W_t - W_s), the suffix decays as the last row of that table, the full-chunk
+# decay as a plain sum.
+
+def _three_pass(q, k, v, w, u=None, chunk=32, diag_mode="inclusive"):
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    n, c = s // chunk, chunk
+    q, k, w = (x.float().reshape(b, h, n, c, dk) for x in (q, k, w))
+    v = v.float().reshape(b, h, n, c, dv)
+    # win[..., t, s, d] = sum_{s<i<=t} w_i, a running sum per window
+    later = torch.arange(c)[None, :] > torch.arange(c)[:, None]        # (s, i): i > s
+    gated = torch.where(later[:, :, None], w[..., None, :, :], torch.zeros(()))
+    win = torch.cumsum(gated, dim=-2).transpose(-3, -2)               # (t, s, d)
+    # 1. chunk_state: Delta_c = (k exp(win[C-1, s]))^T v, e_c = exp(sum_t w_t)
+    delta = torch.einsum("bhnsd,bhnse->bhnde", k * torch.exp(win[..., -1, :, :]), v)
+    decay = torch.exp(w.sum(dim=-2))                                   # (b,h,n,dk)
+    # 2. state_pass: the state entering each chunk, in order from zero
+    states, state = [], torch.zeros(b, h, dk, dv)
+    for i in range(n):
+        states.append(state)
+        state = decay[:, :, i, :, None] * state + delta[:, :, i]
+    hc = torch.stack(states, dim=2)                                    # (b,h,n,dk,dv)
+    # 3. chunk_out: o = q exp(W or Wprev) @ h_c + scores @ v (+ bonus v)
+    W = torch.cumsum(w, dim=-2)
+    t_idx, s_idx = torch.arange(c)[:, None], torch.arange(c)[None, :]
+    if diag_mode == "inclusive":
+        qw, mask, expo = q * torch.exp(W), s_idx <= t_idx, win
+    else:
+        wprev = torch.cat([torch.zeros_like(W[..., :1, :]), W[..., :-1, :]], dim=-2)
+        shifted = torch.cat([torch.zeros_like(win[..., :1, :, :]), win[..., :-1, :, :]],
+                            dim=-3)
+        qw, mask, expo = q * torch.exp(wprev), s_idx < t_idx, shifted
+    rel = torch.exp(torch.where(mask[:, :, None], expo, torch.full((), -1e30)))
+    scores = torch.einsum("bhntd,bhntsd,bhnsd->bhnts", q, rel, k)
+    o = (torch.einsum("bhntd,bhnde->bhnte", qw, hc)
+         + torch.einsum("bhnts,bhnse->bhnte", scores, v))
+    if diag_mode == "bonus":
+        uf = (torch.zeros(h, dk) if u is None else u.float())[None, :, None, None, :]
+        o = o + (q * uf * k).sum(dim=-1, keepdim=True) * v
+    return o.reshape(b, h, s, dv)
+
+
+@pytest.mark.parametrize("mode", ["inclusive", "bonus"])
+@pytest.mark.parametrize("s,chunk", [(32, 8), (32, 16), (64, 8), (64, 16), (64, 64)])
+def test_three_pass_decomposition_matches_reference(mode, s, chunk):
+    """TestDecayScan's shapes at chunks 8, 16 and 64, both modes: the
+    decomposition the card runs agrees with the reference's chunked scan."""
+    rng = np.random.default_rng(s + chunk)
+    q, jq = _pair(rng.normal(size=(1, 2, s, 8)))
+    k, jk = _pair(rng.normal(size=(1, 2, s, 8)))
+    v, jv = _pair(rng.normal(size=(1, 2, s, 12)))
+    w, jw = _pair(-np.abs(rng.normal(size=(1, 2, s, 8))) * 0.3)
+    u, ju = _pair(rng.normal(size=(2, 8)))
+    got = _three_pass(q, k, v, w, u=u, chunk=chunk, diag_mode=mode)
+    want = ref_ops.decay_scan(jq, jk, jv, jw, u=ju, chunk=chunk, diag_mode=mode)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4, atol=1e-4)
+
+
+def test_three_pass_chunking_invariance():
+    """Chunk 8 and chunk 32 of the decomposition agree to 1e-5, and each
+    with the reference at its chunk."""
+    rng = np.random.default_rng(9)
+    q, jq = _pair(rng.normal(size=(1, 1, 64, 8)))
+    k, jk = _pair(rng.normal(size=(1, 1, 64, 8)))
+    v, jv = _pair(rng.normal(size=(1, 1, 64, 8)))
+    w, jw = _pair(-np.abs(rng.normal(size=(1, 1, 64, 8))))
+    o1, o2 = (_three_pass(q, k, v, w, chunk=c) for c in (8, 32))
+    np.testing.assert_allclose(_f32(o1), _f32(o2), rtol=1e-5, atol=1e-5)
+    for got, c in ((o1, 8), (o2, 32)):
+        np.testing.assert_allclose(
+            _f32(got), _f32(ref_ops.decay_scan(jq, jk, jv, jw, chunk=c)),
+            rtol=1e-4, atol=1e-4)
+
+
+def test_three_pass_state_carry():
+    """The impulse at t = 0 crosses three chunk boundaries through the state
+    pass alone (1e-5 of the reference)."""
+    s, dk = 32, 4
+    q = np.ones((1, 1, s, dk))
+    k = np.zeros((1, 1, s, dk))
+    k[0, 0, 0] = 1.0
+    v = np.zeros((1, 1, s, 4))
+    v[0, 0, 0] = 1.0
+    w = np.full((1, 1, s, dk), -0.1)
+    (tq, jq), (tk, jk), (tv, jv), (tw, jw) = (_pair(a) for a in (q, k, v, w))
+    out = _three_pass(tq, tk, tv, tw, chunk=8)
+    assert float(out[0, 0, -1, 0]) > 0
+    np.testing.assert_allclose(_f32(out), _f32(ref_ops.decay_scan(jq, jk, jv, jw, chunk=8)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
+    (1, 64, 4096, 64, 64, 64),      # rwkv6-7b, one layer at 4096 tokens
+    (1, 112, 4096, 64, 64, 64),     # zamba2-7b
+    (1, 4, 4096, 8, 8, 8),          # the card test whose state pass walks 512 chunks
+    (2, 2, 32, 8, 12, 8),
+    (1, 1, 33, 3, 5, 11),
+])
+def test_grids_and_workspace(b, h, s, dk, dv, chunk):
+    """One block per (b*H, chunk) for the two chunk kernels, one thread per
+    (b*H, state element) for the state pass, and a workspace of Delta (dk*dv)
+    and e (dk) per (b*H, chunk)."""
+    n = s // chunk
+    first, state, last = ss.grids(b, h, s, dk, dv, chunk)
+    assert first == last == b * h * n
+    assert (state - 1) * ss.THREADS < b * h * dk * dv <= state * ss.THREADS
+    assert ss.workspace_floats(b, h, s, dk, dv, chunk) == b * h * n * (dk * dv + dk)
+
+
+def test_full_width_workspace_bytes():
+    """68 MB (rwkv6-7b) and 119 MB (zamba2-7b) of f32 at 4096 tokens, chunk 64."""
+    assert ss.workspace_floats(1, 64, 4096, 64, 64, 64) * 4 == 68_157_440
+    assert ss.workspace_floats(1, 112, 4096, 64, 64, 64) * 4 == 119_275_520
+    assert ss.grids(1, 64, 4096, 64, 64, 64)[0] == 4096
+    assert ss.grids(1, 112, 4096, 64, 64, 64)[0] == 7168
