@@ -49,7 +49,25 @@ toolkit.  Phases:
    device time by kernel from ``torch.profiler``;
 7. times the host's share of one wrapper call (``ops.matmul`` at a main-path
    shape, ``ops.attention`` at a small one): enqueue time over many calls,
-   and the ten costliest functions of a ``cProfile`` of them.
+   and the ten costliest functions of a ``cProfile`` of them;
+8. the dense decode and serving path (``repro_torch.models``,
+   ``repro_torch.launch.serve``), at qwen2-0.5b's full width with its
+   weights drawn once from a numpy seed (the reference's draw): ``decode vs
+   forward`` feeds 16 tokens of 2 sequences teacher-forced through
+   ``serve_step`` in float32 without TF32 and holds every position's logits
+   against the port's ``forward`` on the card at 2e-2
+   (``tests/test_decode_consistency.py``), and the first 4 steps against the
+   same steps on the CPU at 2e-2; ``serve`` runs ``Engine`` on the bf16
+   config (4 slots, 8 requests of prompt 8 and gen 16 on a seeded arrival
+   trace) with a ``MetricsRegistry`` and a ``SpanTracer``: every request
+   finishes, every logit is finite, the spans validate, and one JSON
+   ``serve`` line gives tokens/s, steps, step wall and device time, the
+   device's busy share, memory and the card; the same requests with a
+   ``LayerProfiler`` give per-operator times and a join that closes;
+   ``serve chaos`` runs the reduced bf16 config twice under one seeded
+   ``FaultPlan`` with resilience on: no request is lost and the two
+   ``--stable`` span streams are byte-identical.  This path launches none
+   of the four kernels (the reference's serving path runs no Pallas kernel).
 
 Prints one JSON ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a card, outside a checkout of
@@ -227,12 +245,17 @@ def _bound(m: int, k: int, n: int, dtype, out_dtype):
     return flops, nbytes
 
 
-def phase_card_and_build(build):
+def _card_name_and_limit() -> str:
+    """``nvidia-smi``'s name and power limit of the card, as it prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     _check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    for line in smi.stdout.strip().splitlines():
+    return smi.stdout.strip()
+
+
+def phase_card_and_build(build):
+    for line in _card_name_and_limit().splitlines():
         print(line.strip())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
@@ -752,6 +775,224 @@ def phase_path_times(name, route_src, replaces, cases: List[Case], launches,
             "library_device_ms": lib_total["library_device_ms"] if has_lib else None}
 
 
+# -- the dense decode and serving path -------------------------------------
+
+CARD = "cuda"
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_SEED = 0
+DECODE_TOL = 2e-2            # tests/test_decode_consistency.py:60
+
+
+class ServePath:
+    """The modules of the serving path and the full-width weights, drawn once
+    (numpy, ~494 M normals) and carried to the card per phase."""
+
+    def __init__(self):
+        from repro_torch.launch import faults, resilience, serve
+        from repro_torch.models import decode, get_config, params, transformer
+        from repro_torch.obs import modelprof, spans, traffic
+        from repro_torch.obs import MetricsRegistry, SpanTracer
+        self.faults, self.resilience, self.serve = faults, resilience, serve
+        self.decode, self.params, self.transformer = decode, params, transformer
+        self.modelprof, self.spans, self.traffic = modelprof, spans, traffic
+        self.MetricsRegistry, self.SpanTracer = MetricsRegistry, SpanTracer
+        self.cfg = get_config(SERVE_ARCH)
+        self.reduced = get_config(SERVE_ARCH).reduced()
+        t0 = time.perf_counter()
+        self.tree = params.init_numpy_params(self.cfg, SERVE_SEED)
+        print(f"{SERVE_ARCH}: {params.count_params(self.cfg):,} parameters drawn "
+              f"in {time.perf_counter() - t0:.1f}s (numpy, seed {SERVE_SEED})")
+
+
+def phase_decode_vs_forward(sp: ServePath) -> dict:
+    """Teacher-forced decode against forward at full width in float32, on
+    the card, and the first steps on the card against the CPU."""
+    import dataclasses
+    cfg = dataclasses.replace(sp.cfg, dtype="float32")
+    b, s, cpu_steps = 2, 16, 4
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (b, s)))
+    out = {}
+    for where, dev in (("card", CARD), ("cpu", "cpu")):
+        prm = sp.params.params_from_numpy(sp.tree, dev, "float32")
+        cache = sp.decode.init_cache(cfg, prm, b, s + 4)
+        steps = s if where == "card" else cpu_steps
+        toks = tokens.to(dev)
+        logits = [sp.decode.serve_step(cfg, prm, cache, toks[:, i:i + 1], i)[0]
+                  for i in range(steps)]
+        out[where] = torch.cat(logits, dim=1).cpu()
+        if where == "card":
+            from repro_torch.device import full_f32
+            with full_f32():
+                full, _ = sp.transformer.forward(cfg, prm, toks)
+            full = full.cpu()
+        del prm, cache, logits
+        torch.cuda.empty_cache()
+    for label, got in (("decode", out["card"]), ("forward", full)):
+        _check(got.shape[0] == b and got.shape[2] == cfg.vocab_size
+               and bool(torch.isfinite(got).all()), f"{label}: shape or finite")
+    per_pos = (out["card"] - full).abs().amax(dim=(0, 2))
+    vs_cpu = float((out["card"][:, :cpu_steps] - out["cpu"]).abs().max())
+    row = {"arch": SERVE_ARCH, "batch": b, "tokens": s, "dtype": "float32",
+           "max_abs_decode_vs_forward": float(per_pos.max()),
+           "per_position": [float(x) for x in per_pos],
+           "max_abs_card_vs_cpu_first_steps": vs_cpu, "cpu_steps": cpu_steps,
+           "logit_scale": float(full.abs().max()), "tol": DECODE_TOL}
+    print(json.dumps({"decode_vs_forward": row}))
+    _check(row["max_abs_decode_vs_forward"] < DECODE_TOL,
+           f"decode vs forward: max |diff| {row['max_abs_decode_vs_forward']:.3g}")
+    _check(vs_cpu < DECODE_TOL, f"card vs cpu: max |diff| {vs_cpu:.3g}")
+    return row
+
+
+def _serve_requests(sp: ServePath, cfg, requests: int, prompt: int, gen: int,
+                    mean: float):
+    """The CLI's arrival trace and prompts (``launch/serve.py``'s ``main``)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    trace = sp.traffic.synth_trace(SERVE_SEED, requests, mean, [prompt], [gen])
+    return [(t.arrival_step, sp.serve.Request(
+        t.rid, rng.integers(1, cfg.vocab_size, size=t.prompt_len).astype(np.int32),
+        t.gen_len)) for t in trace]
+
+
+def phase_serve(sp: ServePath) -> dict:
+    """The engine on the full bf16 config: a checked run (every logit
+    finite), a timed run, a run under the profiler for the device time, and
+    a run with the layer profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, slots, requests, prompt, gen, mean = sp.cfg, 4, 8, 8, 16, 0.5
+    max_len = (prompt + gen) * requests + 8          # the CLI's, for spread arrivals
+    torch.cuda.reset_peak_memory_stats()
+    prm = sp.params.params_from_numpy(sp.tree, CARD, cfg.dtype)
+    param_bytes = sp.decode.cache_num_bytes(prm)        # bytes of any tree
+
+    def engine(**kw):
+        return sp.serve.Engine(cfg, prm, slots, max_len, device=CARD, **kw)
+
+    def run(eng):
+        t0 = time.perf_counter()
+        sp.serve.replay(eng, _serve_requests(sp, cfg, requests, prompt, gen, mean))
+        return time.perf_counter() - t0
+
+    def finished(eng, label):
+        done = [r for r in eng.done if r.reason == sp.spans.FINISHED]
+        _check(len(eng.done) == requests and len(done) == requests,
+               f"{label}: {len(done)}/{requests} requests finished")
+        _check(all(len(r.out) == gen for r in done), f"{label}: short outputs")
+
+    # 1. checked: every step's logits finite, every request finished
+    eng = engine(spans=sp.SpanTracer())
+    step, nonfinite = eng._step, []
+
+    def checked(*args):
+        logits, cache = step(*args)
+        if not bool(torch.isfinite(logits).all()):
+            nonfinite.append(eng.steps)
+        return logits, cache
+    eng._step = checked
+    run(eng)
+    finished(eng, "checked run")
+    _check(not nonfinite, f"non-finite logits at steps {nonfinite[:5]}")
+
+    # 2. timed, with metrics and spans (the CLI's instruments)
+    reg, tracer = sp.MetricsRegistry(), sp.SpanTracer()
+    eng = engine(metrics=reg, spans=tracer)
+    wall = run(eng)
+    finished(eng, "timed run")
+    problems = sp.spans.validate(tracer.events, slots=slots, engine_steps=eng.steps)
+    _check(problems == [], f"spans.validate: {problems[:3]}")
+    step_us = [e.dur_us for e in tracer.events if e.kind == sp.spans.STEP]
+    ntok = sum(len(r.out) for r in eng.done)
+    cache_bytes = sp.decode.cache_num_bytes(eng.cache)
+    steps = eng.steps
+
+    # 3. the same run under the profiler: device time of the engine's steps
+    eng = engine()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(eng)
+        torch.cuda.synchronize()
+    counts = {}
+    device = _device_events(prof, counts)
+    device_ms_step = sum(device.values()) / eng.steps
+    mean_step_ms = statistics.fmean(step_us) / 1e3
+
+    # 4. the layer profiler: per-operator walls, and the join
+    tracer, layers = sp.SpanTracer(), sp.modelprof.LayerProfiler()
+    eng = engine(spans=tracer, layers=layers)
+    run(eng)
+    finished(eng, "layer-profiled run")
+    mpf = sp.modelprof
+    problems = (mpf.validate(layers.records, cfg=cfg, engine_steps=eng.steps)
+                + mpf.join_mismatches(layers.records, tracer.events, cfg=cfg))
+    _check(problems == [], f"layer records: {problems[:3]}")
+    by_op = {}
+    for r in layers.records:
+        by_op.setdefault(r.op, []).append(r.dur_us)
+    row = {
+        "arch": SERVE_ARCH, "dtype": cfg.dtype, "slots": slots,
+        "requests": requests, "prompt": prompt, "gen": gen, "arrival_mean": mean,
+        "max_len": max_len, "finished": requests, "tokens": ntok,
+        "wall_s": wall, "tokens_per_s": ntok / wall, "engine_steps": steps,
+        "step_wall_ms_median": statistics.median(step_us) / 1e3,
+        "step_wall_ms_mean": mean_step_ms,
+        "step_device_ms": device_ms_step,
+        "device_busy_share": device_ms_step / mean_step_ms,
+        "device_events_per_step": sum(counts.values()) / eng.steps,
+        "device_kernels_top": {k[:60]: v / eng.steps for k, v in sorted(
+            device.items(), key=lambda kv: -kv[1])[:6]},
+        "cache_bytes": cache_bytes, "param_bytes": param_bytes,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "op_mean_us": {op: statistics.fmean(by_op[op])
+                       for op in ("embed", "attn", "mlp", "head")},
+        "layer_steps": eng.steps,
+        "card": _card_name_and_limit(),
+    }
+    print(json.dumps({"serve": row}))
+    del prm
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_chaos(sp: ServePath) -> dict:
+    """The reduced bf16 config under one seeded fault plan, resilience on,
+    twice: no request lost, byte-identical ``--stable`` span streams."""
+    import dataclasses
+    cfg = dataclasses.replace(sp.reduced, dtype="bfloat16")
+    slots, requests, prompt, gen, mean = 4, 12, 6, 10, 0.5
+    max_len = ((prompt + gen) * requests + 8) * 2 + 64   # the CLI's, under faults
+    plan = sp.faults.FaultPlan.generate(11, 128, 0.15, slots, spike_ticks=3,
+                                        spike_us=200)
+    res = sp.resilience.ResilienceConfig(deadline_ticks=300, seed=SERVE_SEED)
+    prm = sp.params.init_params(cfg, seed=SERVE_SEED, device=CARD)
+    streams, engines = [], []
+    for _ in range(2):
+        tracer = sp.SpanTracer()
+        eng = sp.serve.Engine(cfg, prm, slots, max_len, spans=tracer, faults=plan,
+                              resilience=res, device=CARD)
+        sp.serve.replay(eng, _serve_requests(sp, cfg, requests, prompt, gen, mean))
+        problems = sp.spans.validate(tracer.events, slots=slots,
+                                     engine_steps=eng.steps)
+        _check(problems == [], f"chaos spans: {problems[:3]}")
+        _check(len(eng.done) == requests, f"chaos: {len(eng.done)}/{requests} "
+                                          f"requests accounted for")
+        streams.append(sp.spans.to_jsonl(tracer.events, stable=True))
+        engines.append(eng)
+    _check(streams[0] == streams[1], "chaos span streams differ between two runs")
+    eng = engines[0]
+    _check(eng.faults_injected > 0, "the plan injected no fault")
+    reasons = {}
+    for r in eng.done:
+        reasons[r.reason] = reasons.get(r.reason, 0) + 1
+    row = {"arch": f"{SERVE_ARCH} reduced", "dtype": cfg.dtype, "slots": slots,
+           "requests": requests, "plan": plan.counts(),
+           "faults_injected": eng.faults_injected,
+           "faults_detected": eng.faults_detected, "retries": eng.retries,
+           "reasons": reasons, "engine_steps": eng.steps,
+           "span_events": len(streams[0].splitlines()), "identical": True}
+    print(json.dumps({"serve_chaos": row}))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -837,6 +1078,11 @@ def main() -> int:
                 name, src, replaces, cases, launches, full_f32)):
             kernels.append(results[f"{name} times"])
     run("host cost", lambda: phase_host_cost(ops, checks))
+    if run("serve path weights", ServePath):
+        sp = results["serve path weights"]
+        run("decode vs forward", lambda: phase_decode_vs_forward(sp))
+        run("serve", lambda: phase_serve(sp))
+        run("serve chaos", lambda: phase_serve_chaos(sp))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if failures:

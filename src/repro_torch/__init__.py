@@ -21,8 +21,16 @@ for module and is held against it on the same inputs.  Ground rules:
 
 Ported so far: the paper's compile flow (``core``) with its torch oracle
 (``core.torch_backend``) and the banked-kernel backend
-(``core.cuda_backend``) over ``kernels.banked_matmul``; and the other three
+(``core.cuda_backend``) over ``kernels.banked_matmul``; the other three
 kernels of ``repro.kernels`` behind ``kernels.ops``: ``attention``
 (``kernels.flash_attention``), ``decay_scan`` (``kernels.ssm_scan``) and
-``conv2d`` (``kernels.banked_conv2d``).
+``conv2d`` (``kernels.banked_conv2d``); and dense decode and serving: the
+model zoo's configs and dense family (``models``: params with the
+reference's seeded weights, ``forward``/``loss_fn``, the decode cache and
+``serve_step``), the continuous-batching engine with its faults,
+resilience and CLI (``launch.serve``, ``launch.faults``,
+``launch.resilience``) and its observability (``obs``: metrics, spans,
+traffic, the layer profiler).  The serving path, like the reference's,
+runs none of the four kernels: its products are plain ``torch`` matmuls
+and einsums, as the reference's are einsums.
 """

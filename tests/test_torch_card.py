@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card (``-m cuda``; they skip without one).
+"""The port on the card (``-m cuda``; these tests skip without one): its CUDA
+kernels, and the serve step of the decode path.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card.py
 
@@ -127,6 +128,33 @@ def test_conv2d_matches_plain_on_the_card():
     """Every case of TestBankedConv2d and the kernel's own variants."""
     _card()
     _hold_all(checks.conv2d("cuda"), bc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["", "int8"])
+def test_serve_step_on_the_card_matches_the_cpu(kv):
+    """qwen2-0.5b reduced, float32: twelve teacher-forced serve steps on the
+    card give the CPU's logits at 1e-5 (of the logits' scale, at least 1),
+    a plain and an int8 KV cache; the cache stays on the card."""
+    _card()
+    import dataclasses
+    from repro_torch.models import decode, get_config, params
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), kv_cache_dtype=kv)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        prm = params.init_params(cfg, seed=0, device=dev)
+        cache = decode.init_cache(cfg, prm, 2, 16)
+        assert all(t.device.type == dev for t in decode._leaves(cache))
+        out = []
+        for i in range(12):
+            logits, cache = decode.serve_step(cfg, prm, cache,
+                                              tokens[:, i:i + 1].to(dev), i)
+            out.append(logits.cpu().numpy())
+        runs[dev] = np.stack(out)
+    scale = max(1.0, float(np.abs(runs["cpu"]).max()))
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("table", ["matmul", "attention", "decay_scan", "conv2d"])

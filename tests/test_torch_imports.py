@@ -19,6 +19,15 @@ import repro_torch.kernels.flash_attention, repro_torch.kernels.ssm_scan
 import repro_torch.kernels.banked_conv2d, repro_torch.kernels.ref
 import repro_torch.kernels.checks
 import repro_torch.core.torch_backend, repro_torch.device
+import repro_torch.models, repro_torch.models.config, repro_torch.models.common
+import repro_torch.models.params, repro_torch.models.mlp
+import repro_torch.models.attention, repro_torch.models.transformer
+import repro_torch.models.decode, repro_torch.configs
+import repro_torch.obs, repro_torch.obs.metrics, repro_torch.obs.spans
+import repro_torch.obs.traffic, repro_torch.obs.modelprof
+import repro_torch.launch.faults, repro_torch.launch.resilience
+import repro_torch.launch.serve
+repro_torch.models.all_names()          # imports the ten config modules
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))))
