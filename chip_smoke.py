@@ -50,24 +50,31 @@ toolkit.  Phases:
 7. times the host's share of one wrapper call (``ops.matmul`` at a main-path
    shape, ``ops.attention`` at a small one): enqueue time over many calls,
    and the ten costliest functions of a ``cProfile`` of them;
-8. the dense decode and serving path (``repro_torch.models``,
-   ``repro_torch.launch.serve``), at qwen2-0.5b's full width with its
-   weights drawn once from a numpy seed (the reference's draw): ``decode vs
+8. the decode and serving path (``repro_torch.models``,
+   ``repro_torch.launch.serve``), for each architecture of
+   ``SERVE_ARCHS`` at full width: qwen2-0.5b (dense) and rwkv6-7b (ssm,
+   RWKV6).  Its weights are drawn once from a numpy seed (the reference's
+   draw) and streamed leaf by leaf to the card in float32
+   (``params.stream_params``; the draw's seconds are printed): ``decode vs
    forward`` feeds 16 tokens of 2 sequences teacher-forced through
    ``serve_step`` in float32 without TF32 and holds every position's logits
    against the port's ``forward`` on the card at 2e-2
    (``tests/test_decode_consistency.py``), and the first 4 steps against the
-   same steps on the CPU at 2e-2; ``serve`` runs ``Engine`` on the bf16
-   config (4 slots, 8 requests of prompt 8 and gen 16 on a seeded arrival
-   trace) with a ``MetricsRegistry`` and a ``SpanTracer``: every request
-   finishes, every logit is finite, the spans validate, and one JSON
-   ``serve`` line gives tokens/s, steps, step wall and device time, the
-   device's busy share, memory and the card; the same requests with a
-   ``LayerProfiler`` give per-operator times and a join that closes;
-   ``serve chaos`` runs the reduced bf16 config twice under one seeded
-   ``FaultPlan`` with resilience on: no request is lost and the two
-   ``--stable`` span streams are byte-identical.  This path launches none
-   of the four kernels (the reference's serving path runs no Pallas kernel).
+   same steps on the CPU at 2e-2, at full width and every layer for
+   qwen2-0.5b, the first 2 layers for rwkv6-7b (listed as ``reduced``);
+   ``serve`` casts the weights to bf16 in place (``params.cast_params``)
+   and runs ``Engine`` (4 slots, 8 requests of prompt 8 and gen 16 on a
+   seeded arrival trace) with a ``MetricsRegistry`` and a ``SpanTracer``:
+   every request finishes, every logit is finite, the spans validate, and
+   one JSON ``serve`` line gives tokens/s, steps, step wall and device time,
+   the device's busy share, the cache's bytes at init and after the first
+   step (RWKV6's wkv state turns float32 there), memory and the card; the
+   same requests with a ``LayerProfiler`` give the time of every operator
+   of ``decode.profile_ops`` and a join that closes; ``serve chaos`` runs
+   the reduced bf16 config twice under one seeded ``FaultPlan`` with
+   resilience on: no request is lost and the two ``--stable`` span streams
+   are byte-identical.  This path launches none of the four kernels (the
+   reference's serving path runs no Pallas kernel).
 
 Prints one JSON ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a card, outside a checkout of
@@ -75,6 +82,7 @@ the repository, or when any phase fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -775,19 +783,25 @@ def phase_path_times(name, route_src, replaces, cases: List[Case], launches,
             "library_device_ms": lib_total["library_device_ms"] if has_lib else None}
 
 
-# -- the dense decode and serving path -------------------------------------
+# -- the decode and serving path -------------------------------------------
 
 CARD = "cuda"
-SERVE_ARCH = "qwen2-0.5b"
 SERVE_SEED = 0
 DECODE_TOL = 2e-2            # tests/test_decode_consistency.py:60
 
+# the served architectures at full width, each with the depth of its card vs
+# CPU check (None: every layer; rwkv6-7b's 30 GB of float32 weights would
+# not fit a host of unknown size, so that check runs its first 2 layers)
+SERVE_ARCHS = (("qwen2-0.5b", None), ("rwkv6-7b", 2))
+
 
 class ServePath:
-    """The modules of the serving path and the full-width weights, drawn once
-    (numpy, ~494 M normals) and carried to the card per phase."""
+    """The modules of the serving path and one architecture's full-width
+    weights, drawn once from numpy (the reference's draw, bit for bit) and
+    streamed leaf by leaf to the card in float32; the serve phase casts them
+    to the model dtype in place."""
 
-    def __init__(self):
+    def __init__(self, arch: str, cpu_layers: Optional[int]):
         from repro_torch.launch import faults, resilience, serve
         from repro_torch.models import decode, get_config, params, transformer
         from repro_torch.obs import modelprof, spans, traffic
@@ -796,47 +810,72 @@ class ServePath:
         self.decode, self.params, self.transformer = decode, params, transformer
         self.modelprof, self.spans, self.traffic = modelprof, spans, traffic
         self.MetricsRegistry, self.SpanTracer = MetricsRegistry, SpanTracer
-        self.cfg = get_config(SERVE_ARCH)
-        self.reduced = get_config(SERVE_ARCH).reduced()
+        self.arch = arch
+        self.cfg = get_config(arch)
+        self.reduced = get_config(arch).reduced()
+        self.cpu_layers = cpu_layers or self.cfg.num_layers
         t0 = time.perf_counter()
-        self.tree = params.init_numpy_params(self.cfg, SERVE_SEED)
-        print(f"{SERVE_ARCH}: {params.count_params(self.cfg):,} parameters drawn "
-              f"in {time.perf_counter() - t0:.1f}s (numpy, seed {SERVE_SEED})")
+        self.prm = params.stream_params(self.cfg, SERVE_SEED, CARD, "float32")
+        torch.cuda.synchronize()
+        self.draw_s = time.perf_counter() - t0
+        self.n_params = params.count_params(self.cfg)
+        print(f"{arch}: {self.n_params:,} parameters drawn in "
+              f"{self.draw_s:.1f}s (numpy, seed {SERVE_SEED}, streamed to the "
+              f"card in float32)", flush=True)
+
+
+def _first_groups(tree, n: int):
+    """The tree with its stacked blocks cut to the first ``n`` groups."""
+    cut = lambda t: ({k: cut(v) for k, v in t.items()}       # noqa: E731
+                     if isinstance(t, dict) else t[:n])
+    return {k: cut(v) if k == "blocks" else v for k, v in tree.items()}
+
+
+def _to(tree, dev):
+    return ({k: _to(v, dev) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.to(dev))
 
 
 def phase_decode_vs_forward(sp: ServePath) -> dict:
     """Teacher-forced decode against forward at full width in float32, on
-    the card, and the first steps on the card against the CPU."""
+    the card; and the first steps of the first ``cpu_layers`` layers, at
+    full width, on the card against the same on the CPU."""
     import dataclasses
+    from repro_torch.device import full_f32
     cfg = dataclasses.replace(sp.cfg, dtype="float32")
     b, s, cpu_steps = 2, 16, 4
     tokens = torch.from_numpy(np.random.default_rng(16).integers(
         0, cfg.vocab_size, (b, s)))
-    out = {}
-    for where, dev in (("card", CARD), ("cpu", "cpu")):
-        prm = sp.params.params_from_numpy(sp.tree, dev, "float32")
-        cache = sp.decode.init_cache(cfg, prm, b, s + 4)
-        steps = s if where == "card" else cpu_steps
-        toks = tokens.to(dev)
-        logits = [sp.decode.serve_step(cfg, prm, cache, toks[:, i:i + 1], i)[0]
-                  for i in range(steps)]
-        out[where] = torch.cat(logits, dim=1).cpu()
-        if where == "card":
-            from repro_torch.device import full_f32
-            with full_f32():
-                full, _ = sp.transformer.forward(cfg, prm, toks)
-            full = full.cpu()
-        del prm, cache, logits
-        torch.cuda.empty_cache()
-    for label, got in (("decode", out["card"]), ("forward", full)):
+
+    def decode(c, prm, toks, steps):
+        cache = sp.decode.init_cache(c, prm, b, s + 4)
+        return torch.cat([sp.decode.serve_step(c, prm, cache, toks[:, i:i + 1],
+                                               i)[0] for i in range(steps)],
+                         dim=1).cpu()
+
+    toks = tokens.to(CARD)
+    card = decode(cfg, sp.prm, toks, s)
+    with full_f32():
+        full = sp.transformer.forward(cfg, sp.prm, toks)[0].cpu()
+    cut = dataclasses.replace(cfg, num_layers=sp.cpu_layers)
+    cut_prm = _first_groups(sp.prm, cut.num_groups)
+    cut_card = decode(cut, cut_prm, toks, cpu_steps)
+    cut_cpu = decode(cut, _to(cut_prm, "cpu"), tokens, cpu_steps)
+    torch.cuda.empty_cache()
+    for label, got in (("decode", card), ("forward", full),
+                       ("card, cut", cut_card), ("cpu, cut", cut_cpu)):
         _check(got.shape[0] == b and got.shape[2] == cfg.vocab_size
                and bool(torch.isfinite(got).all()), f"{label}: shape or finite")
-    per_pos = (out["card"] - full).abs().amax(dim=(0, 2))
-    vs_cpu = float((out["card"][:, :cpu_steps] - out["cpu"]).abs().max())
-    row = {"arch": SERVE_ARCH, "batch": b, "tokens": s, "dtype": "float32",
+    per_pos = (card - full).abs().amax(dim=(0, 2))
+    vs_cpu = float((cut_card - cut_cpu).abs().max())
+    row = {"arch": sp.arch, "batch": b, "tokens": s, "dtype": "float32",
            "max_abs_decode_vs_forward": float(per_pos.max()),
            "per_position": [float(x) for x in per_pos],
            "max_abs_card_vs_cpu_first_steps": vs_cpu, "cpu_steps": cpu_steps,
+           "cpu_layers": sp.cpu_layers, "layers": cfg.num_layers,
+           "reduced": ([] if sp.cpu_layers == cfg.num_layers else
+                       [f"card vs cpu: {sp.cpu_layers} of {cfg.num_layers} "
+                        f"layers (host memory)"]),
            "logit_scale": float(full.abs().max()), "tol": DECODE_TOL}
     print(json.dumps({"decode_vs_forward": row}))
     _check(row["max_abs_decode_vs_forward"] < DECODE_TOL,
@@ -858,12 +897,15 @@ def _serve_requests(sp: ServePath, cfg, requests: int, prompt: int, gen: int,
 def phase_serve(sp: ServePath) -> dict:
     """The engine on the full bf16 config: a checked run (every logit
     finite), a timed run, a run under the profiler for the device time, and
-    a run with the layer profiler."""
+    a run with the layer profiler.  The weights are cast to bf16 in place
+    first; the peak memory is taken from there on."""
     from torch.profiler import ProfilerActivity, profile
     cfg, slots, requests, prompt, gen, mean = sp.cfg, 4, 8, 8, 16, 0.5
     max_len = (prompt + gen) * requests + 8          # the CLI's, for spread arrivals
+    prm = sp.params.cast_params(sp.prm, cfg.dtype)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prm = sp.params.params_from_numpy(sp.tree, CARD, cfg.dtype)
+    at_start = torch.cuda.memory_allocated()   # weights + earlier phases' tensors
     param_bytes = sp.decode.cache_num_bytes(prm)        # bytes of any tree
 
     def engine(**kw):
@@ -880,14 +922,19 @@ def phase_serve(sp: ServePath) -> dict:
                f"{label}: {len(done)}/{requests} requests finished")
         _check(all(len(r.out) == gen for r in done), f"{label}: short outputs")
 
-    # 1. checked: every step's logits finite, every request finished
+    # 1. checked: every step's logits finite, every request finished; the
+    # cache's bytes at init and after the first step (RWKV6's wkv state is
+    # float32 from then on, ROADMAP.md C.13)
     eng = engine(spans=sp.SpanTracer())
     step, nonfinite = eng._step, []
+    cache_bytes = [sp.decode.cache_num_bytes(eng.cache)]
 
     def checked(*args):
         logits, cache = step(*args)
         if not bool(torch.isfinite(logits).all()):
             nonfinite.append(eng.steps)
+        if len(cache_bytes) == 1:
+            cache_bytes.append(sp.decode.cache_num_bytes(cache))
         return logits, cache
     eng._step = checked
     run(eng)
@@ -903,7 +950,6 @@ def phase_serve(sp: ServePath) -> dict:
     _check(problems == [], f"spans.validate: {problems[:3]}")
     step_us = [e.dur_us for e in tracer.events if e.kind == sp.spans.STEP]
     ntok = sum(len(r.out) for r in eng.done)
-    cache_bytes = sp.decode.cache_num_bytes(eng.cache)
     steps = eng.steps
 
     # 3. the same run under the profiler: device time of the engine's steps
@@ -928,8 +974,9 @@ def phase_serve(sp: ServePath) -> dict:
     by_op = {}
     for r in layers.records:
         by_op.setdefault(r.op, []).append(r.dur_us)
+    ops = dict.fromkeys(op for op, _ in sp.decode.profile_ops(cfg))
     row = {
-        "arch": SERVE_ARCH, "dtype": cfg.dtype, "slots": slots,
+        "arch": sp.arch, "dtype": cfg.dtype, "slots": slots,
         "requests": requests, "prompt": prompt, "gen": gen, "arrival_mean": mean,
         "max_len": max_len, "finished": requests, "tokens": ntok,
         "wall_s": wall, "tokens_per_s": ntok / wall, "engine_steps": steps,
@@ -940,16 +987,16 @@ def phase_serve(sp: ServePath) -> dict:
         "device_events_per_step": sum(counts.values()) / eng.steps,
         "device_kernels_top": {k[:60]: v / eng.steps for k, v in sorted(
             device.items(), key=lambda kv: -kv[1])[:6]},
-        "cache_bytes": cache_bytes, "param_bytes": param_bytes,
+        "cache_bytes_init": cache_bytes[0],
+        "cache_bytes_after_first_step": cache_bytes[-1],
+        "param_bytes": param_bytes, "params": sp.n_params, "draw_s": sp.draw_s,
+        "memory_allocated_at_start": at_start,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "op_mean_us": {op: statistics.fmean(by_op[op])
-                       for op in ("embed", "attn", "mlp", "head")},
+        "op_mean_us": {op: statistics.fmean(by_op[op]) for op in ops},
         "layer_steps": eng.steps,
         "card": _card_name_and_limit(),
     }
     print(json.dumps({"serve": row}))
-    del prm
-    torch.cuda.empty_cache()
     return row
 
 
@@ -983,7 +1030,7 @@ def phase_serve_chaos(sp: ServePath) -> dict:
     reasons = {}
     for r in eng.done:
         reasons[r.reason] = reasons.get(r.reason, 0) + 1
-    row = {"arch": f"{SERVE_ARCH} reduced", "dtype": cfg.dtype, "slots": slots,
+    row = {"arch": f"{sp.arch} reduced", "dtype": cfg.dtype, "slots": slots,
            "requests": requests, "plan": plan.counts(),
            "faults_injected": eng.faults_injected,
            "faults_detected": eng.faults_detected, "retries": eng.retries,
@@ -1078,11 +1125,19 @@ def main() -> int:
                 name, src, replaces, cases, launches, full_f32)):
             kernels.append(results[f"{name} times"])
     run("host cost", lambda: phase_host_cost(ops, checks))
-    if run("serve path weights", ServePath):
-        sp = results["serve path weights"]
-        run("decode vs forward", lambda: phase_decode_vs_forward(sp))
-        run("serve", lambda: phase_serve(sp))
-        run("serve chaos", lambda: phase_serve_chaos(sp))
+    for arch, cpu_layers in SERVE_ARCHS:
+        if not run(f"{arch} weights", lambda: ServePath(arch, cpu_layers)):
+            continue
+        sp = results.pop(f"{arch} weights")
+        run(f"{arch} decode vs forward", lambda: phase_decode_vs_forward(sp))
+        run(f"{arch} serve", lambda: phase_serve(sp))
+        run(f"{arch} serve chaos", lambda: phase_serve_chaos(sp))
+        # free the weights on the card: the cached sliced step holds views,
+        # and the checked engine and its step wrapper form a cycle
+        sp.decode.make_profiled_serve_step.cache_clear()
+        del sp
+        gc.collect()
+        torch.cuda.empty_cache()
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if failures:

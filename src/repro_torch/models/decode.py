@@ -1,13 +1,19 @@
-"""Decode path, dense family: cache construction + single-token serve step.
+"""Decode path, dense and ssm families: cache construction + single-token
+serve step.
 
 The port of ``repro.models.decode``.  The cache keeps the reference's
-layout, stacked over groups: ``{'lyr': {'k','v'}}`` of
+layout, stacked over groups: dense ``{'lyr': {'k','v'}}`` of
 (G, B, Hkv, L, dh) (gemma2: ``{'local','global'}``, the local one a ring of
 ``sliding_window`` slots), plus (G, B, Hkv, L, 1) float32 scales for an
-int8 cache.  Where the reference returns new caches, the port writes the
-cache in place and returns it: :func:`serve_step`, the slot surgery and the
-per-group list form of :class:`ProfiledServeStep` (views of one stacked
-cache) all mutate the tensors they are given.  The other families raise
+int8 cache; ssm (RWKV6) ``{'lyr': {'wkv', 'shift_tm', 'shift_cm'}}`` of
+(G, B, H, dh, dh) and (G, B, 1, D), no length axis.  Where the reference
+returns new caches, the port writes the cache in place and returns it:
+:func:`serve_step`, the slot surgery and the per-group list form of
+:class:`ProfiledServeStep` (views of one stacked cache) all mutate the
+tensors they are given.  One leaf changes dtype: the wkv state is created
+in the model dtype and the reference's step returns it in float32, so from
+the first step on the port holds it in float32 too, a new leaf bound in
+place of the old one (``ROADMAP.md`` C.13).  The other families raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item; ``cache_specs``
 waits for the dry-run (item 20).
 """
@@ -21,10 +27,11 @@ import torch
 
 from ..device import full_f32
 from . import attention as A
+from . import rwkv as R
 from .common import embed, lm_logits, norm
 from .config import ModelConfig
 from .mlp import mlp_block
-from .transformer import group_params, require_dense
+from .transformer import group_params, require_ported
 
 
 def _kv_shape(cfg: ModelConfig, batch: int, max_len: int):
@@ -58,8 +65,10 @@ def _stack_shapes(n: int, tree):
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Any:
-    require_dense(cfg)
-    if cfg.local_global:
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        per = {"lyr": R.rwkv_cache_shape(cfg, batch)}
+    elif cfg.local_global:
         local_len = min(max_len, cfg.sliding_window)
         per = {"local": _kv_entry(cfg, batch, local_len),
                "global": _kv_entry(cfg, batch, max_len)}
@@ -116,9 +125,37 @@ def _dense_decode(cfg, p, x1, c, pos, window=0, ring=False):
     return x1 + m, c_new
 
 
+def _write(c: Dict, new: Dict) -> None:
+    """Write a group's new cache entries into its cache views, in place."""
+    for key, val in new.items():
+        c[key].copy_(val)
+
+
+def _wkv_to_f32(cfg: ModelConfig, cache) -> None:
+    """C.13: the reference's step returns the wkv state in float32, whatever
+    the cache's dtype, so after its first step the state is float32.  Bind a
+    float32 copy in place of a state held in another dtype (the values are
+    unchanged: the upcast is exact); the list form gets views of one stacked
+    float32 tensor."""
+    if cfg.family != "ssm":
+        return
+    if isinstance(cache, list):
+        if cache[0]["lyr"]["wkv"].dtype != torch.float32:
+            stacked = torch.stack([c["lyr"]["wkv"] for c in cache]).float()
+            for g, c in enumerate(cache):
+                c["lyr"]["wkv"] = stacked[g]
+    elif cache["lyr"]["wkv"].dtype != torch.float32:
+        cache["lyr"]["wkv"] = cache["lyr"]["wkv"].float()
+
+
 def _group_decode(cfg: ModelConfig, pos):
-    require_dense(cfg)
-    if cfg.local_global:
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        def step(x1, gp, gc):
+            x1, new = R.rwkv_decode_step(cfg, gp["lyr"], x1, gc["lyr"])
+            _write(gc["lyr"], new)
+            return x1, gc
+    elif cfg.local_global:
         def step(x1, gp, gc):
             x1, cl = _dense_decode(cfg, gp["local"], x1, gc["local"], pos,
                                    window=cfg.sliding_window, ring=True)
@@ -140,6 +177,7 @@ def serve_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, pos
     Returns (logits (B, 1, V) float32, the cache, updated in place).
     """
     pos = int(pos)
+    _wkv_to_f32(cfg, cache)
     with full_f32():
         x1 = embed(cfg, params, tokens)
         step = _group_decode(cfg, pos)
@@ -159,7 +197,10 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 
 def cache_max_len(cfg: ModelConfig, cache) -> int:
-    """Decoder self-attention cache length (the position-table size)."""
+    """Decoder self-attention cache length (the position-table size): the
+    largest ``shape[-2]`` of a leaf with four axes or more.  For RWKV6 that
+    is the wkv state's ``head_dim``, as in the reference, which has no
+    length axis to read."""
     return max((l.shape[-2] for l in _leaves(cache) if l.ndim >= 4),
                default=1)
 
@@ -255,8 +296,8 @@ def corrupt_cache_slot(cfg: ModelConfig, cache, slot: int):
 # ---------------------------------------------------------------------------
 
 # families with a sliced-segment decomposition in the port; the reference's
-# moe, ssm and hybrid decompositions come with their families (ROADMAP.md A)
-PROFILED_FAMILIES = ("dense",)
+# moe and hybrid decompositions come with their families (ROADMAP.md A)
+PROFILED_FAMILIES = ("dense", "ssm")
 
 
 def profile_ops(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
@@ -267,10 +308,12 @@ def profile_ops(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
     validator and the analytic cost model share: one record per entry per
     engine step.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     ops = [("embed", -1)]
     for g in range(cfg.num_groups):
-        if cfg.local_global:
+        if cfg.family == "ssm":
+            ops += [("time_mix", g), ("channel_mix", g)]
+        elif cfg.local_global:
             ops += [("attn_local", g), ("mlp_local", g),
                     ("attn_global", g), ("mlp_global", g)]
         else:
@@ -281,8 +324,8 @@ def profile_ops(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
 
 class ProfiledServeStep:
     """One decode step as a sequence of segments (embed / per-group attn and
-    mlp / head), each synchronized (``torch.cuda.synchronize()`` on a card)
-    and wall-stamped.
+    mlp, or time_mix and channel_mix / head), each synchronized
+    (``torch.cuda.synchronize()`` on a card) and wall-stamped.
 
     The same math as :func:`serve_step` in the same order, so logits and
     cache agree with the fused step bit for bit; it pays one sync per
@@ -334,6 +377,16 @@ class ProfiledServeStep:
             m = norm(cfg, p["ln2_post"], m)
         return x1 + m
 
+    def _time_mix(self, p, x1, c):
+        x1, new = R.rwkv_time_mix_step(self.cfg, p, x1, c)
+        _write(c, new)
+        return x1
+
+    def _channel_mix(self, p, x1, c):
+        x1, new = R.rwkv_channel_mix_step(self.cfg, p, x1, c)
+        _write(c, new)
+        return x1
+
     def _sliced(self, params):
         if self._params_id != id(params):
             cfg = self.cfg
@@ -371,11 +424,15 @@ class ProfiledServeStep:
             key = "embed" if cfg.tie_embeddings else "lm_head"
             return lm_logits(cfg, {key: aux["head_w"]}, x1)
 
+        _wkv_to_f32(cfg, cache_groups)
         with full_f32():
             x1 = timed(embed, cfg, {"embed": aux["embed"]}, tokens)
             for g in range(cfg.num_groups):
                 gp, gc = gps[g], cache_groups[g]
-                if cfg.local_global:
+                if cfg.family == "ssm":
+                    x1 = timed(self._time_mix, gp["lyr"], x1, gc["lyr"])
+                    x1 = timed(self._channel_mix, gp["lyr"], x1, gc["lyr"])
+                elif cfg.local_global:
                     x1, _ = timed(self._attn, gp["local"], x1, gc["local"], pos,
                                   window=cfg.sliding_window, ring=True)
                     x1 = timed(self._mlp, gp["local"], x1)

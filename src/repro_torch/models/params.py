@@ -3,8 +3,12 @@
 The port of ``repro.models.params``.  ``param_shapes`` builds a tree whose
 leaves are (shape tuple, init kind), the single source of truth for every
 family; ``init_params`` materializes it as torch tensors with the weights
-the reference draws from the same seed; ``params_from_numpy`` carries the
-reference's own parameters (given as numpy arrays) over.  The tree keeps the
+the reference draws from the same seed, drawn leaf by leaf in pieces
+straight to the device (``stream_params``: the whole tree never sits on
+the host), and ``cast_params`` casts a tree leaf by leaf;
+``init_numpy_params`` is the same draw as numpy arrays, and
+``params_from_numpy`` carries the reference's own parameters (given as
+numpy arrays) over.  The tree keeps the
 reference's nested dicts, with the stacked group axis in front.
 """
 from __future__ import annotations
@@ -223,27 +227,30 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _draw_leaf(rng: np.random.Generator, lf: Leaf):
+def _draw_leaf(rng: np.random.Generator, lf: Leaf, size=None):
     """One leaf as the reference draws it: numpy values, or a constant.
+    ``size``: draw only that many of the leaf's values (the next ones of
+    its flattened C order), at the leaf's own scale.
 
     The scale reads ``shape[0]``, which for a block weight is the stacked
     group count, not the layer's input width (``ROADMAP.md`` C.6)."""
     shape, kind = lf
+    size = shape if size is None else size
     if kind == "zeros":
-        return np.zeros(shape, np.float32)
+        return np.zeros(size, np.float32)
     if kind == "ones":
-        return np.ones(shape, np.float32)
+        return np.ones(size, np.float32)
     if kind == "half":
-        return np.full(shape, 0.5, np.float32)
+        return np.full(size, 0.5, np.float32)
     if kind == "a_log":
-        return np.log(rng.uniform(1, 16, shape))
+        return np.log(rng.uniform(1, 16, size))
     if kind == "dt_bias":
-        return np.log(np.expm1(rng.uniform(1e-3, 0.1, shape)))
+        return np.log(np.expm1(rng.uniform(1e-3, 0.1, size)))
     if kind == "decay_base":
-        return rng.uniform(-7.0, -5.0, shape)
+        return rng.uniform(-7.0, -5.0, size)
     scale = 0.02 if kind == "embed" else 1.0 / math.sqrt(max(shape[0] if
                                                              shape else 1, 1))
-    return rng.normal(0.0, scale, shape).astype(np.float32)
+    return rng.normal(0.0, scale, size).astype(np.float32)
 
 
 def init_numpy_params(cfg: ModelConfig, seed: int = 0) -> Any:
@@ -272,12 +279,54 @@ def params_from_numpy(tree, device: DeviceLike, dtype) -> Any:
     return carry(tree)
 
 
+def stream_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                  dtype="float32", piece: int = 1 << 24) -> Any:
+    """The reference's weights for ``cfg`` and ``seed`` (the values of
+    :func:`init_numpy_params`), drawn leaf by leaf straight to ``device``
+    (``cuda`` unless named) as ``dtype``.
+
+    One numpy generator walks the leaves in sorted-key order, as
+    :func:`init_numpy_params` does; each leaf is drawn in pieces of at most
+    ``piece`` numbers of its flattened C order, each carried over and cast
+    as :func:`params_from_numpy` casts, so the host holds one piece at a
+    time.  numpy fills a draw in C order from the generator's stream, so
+    the pieces are the whole leaf's draw, bit for bit (tested)."""
+    dev = resolve_device(device)
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    rng = np.random.default_rng(seed)
+
+    def leaf(lf: Leaf) -> torch.Tensor:
+        out = torch.empty(lf[0], dtype=dt, device=dev)
+        flat = out.view(-1)
+        for lo in range(0, flat.numel(), piece):
+            n = min(piece, flat.numel() - lo)
+            a = _draw_leaf(rng, lf, size=(n,))
+            flat[lo:lo + n].copy_(torch.from_numpy(a).to(dev).to(dt))
+        return out
+    return _tree_map(leaf, param_shapes(cfg))
+
+
+def cast_params(tree, dtype) -> Any:
+    """Cast ``tree``'s leaves to ``dtype`` one by one, each new leaf bound in
+    place of the old one, so that a tree nobody else holds is never held
+    twice.  A bf16 cast of a float32 tree has the bits of the bf16 tree
+    :func:`params_from_numpy` makes from the same numpy values (every cast
+    rounds to nearest even through float32), so one float32 draw serves
+    both dtypes.  Returns ``tree``."""
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            cast_params(tree[k], dt)
+        else:
+            tree[k] = tree[k].to(dt)
+    return tree
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> Any:
     """The reference's weights for ``cfg`` and ``seed``, as tensors of the
     model dtype on ``device`` (``cuda`` unless the caller names another)."""
-    dev = resolve_device(device)
-    return params_from_numpy(init_numpy_params(cfg, seed), dev, cfg.dtype)
+    return stream_params(cfg, seed, device, cfg.dtype)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -1,9 +1,9 @@
-"""LM forward + loss, dense family; the port of ``repro.models.transformer``.
+"""LM forward + loss; the port of ``repro.models.transformer``.
 
 The layer stack is a Python loop over the stacked group axis of
-``params["blocks"]`` (the reference scans it).  The dense family runs here,
-gemma2's local/global pair included; the other families raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+``params["blocks"]`` (the reference scans it).  The dense family (gemma2's
+local/global pair included) and the ssm family (RWKV6) run here; the other
+families raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -12,19 +12,20 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import attention as A
+from . import rwkv as R
 from .common import embed, lm_logits, norm, rope_freqs
 from .config import ModelConfig
 from .mlp import mlp_block
 
-# families still to be ported, by ROADMAP.md item
-_LATER = {"ssm": "item 13 (RWKV6)", "hybrid": "item 15 (zamba2)",
-          "moe": "item 16 (MoE)", "audio": "item 17 (Whisper)",
-          "vlm": "item 17 (Llama-3.2-vision)"}
+# the families the port runs, and those still to be ported, by ROADMAP.md item
+PORTED_FAMILIES = ("dense", "ssm")
+_LATER = {"hybrid": "item 15 (zamba2)", "moe": "item 16 (MoE)",
+          "audio": "item 17 (Whisper)", "vlm": "item 17 (Llama-3.2-vision)"}
 
 
-def require_dense(cfg: ModelConfig) -> None:
+def require_ported(cfg: ModelConfig) -> None:
     """Raise for a family the port does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"(ROADMAP.md {_LATER.get(cfg.family, 'A')})")
@@ -59,6 +60,8 @@ def dense_layer(cfg: ModelConfig, p, x, rope, *, window: int = 0):
 
 
 def _group_step(cfg: ModelConfig, x, gp, rope):
+    if cfg.family == "ssm":
+        return R.rwkv_block(cfg, gp["lyr"], x)
     if cfg.local_global:
         x = dense_layer(cfg, gp["local"], x, rope, window=cfg.sliding_window)
         return dense_layer(cfg, gp["global"], x, rope)
@@ -73,7 +76,7 @@ def _group_step(cfg: ModelConfig, x, gp, rope):
 def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor
                    ) -> Tuple[torch.Tensor, Dict]:
     """tokens: (B, S) -> final-norm hidden states (B, S, D) + aux."""
-    require_dense(cfg)
+    require_ported(cfg)
     b, s = tokens.shape
     x = embed(cfg, params, tokens)
     rope = None

@@ -4,8 +4,8 @@ The port of ``repro.obs.modelprof``: the middle tier of the observability
 stack, between serving spans (``obs.spans``: one wall time per engine step)
 and the hardware path's cycle counters (``core.profiler``).  One record per
 *model operator* per engine step, produced by the sliced decode step
-(``models.decode.ProfiledServeStep``: embed / per-group attn · mlp / head,
-each synchronized and wall-stamped).
+(``models.decode.ProfiledServeStep``: embed / per-group attn · mlp or RWKV
+time_mix · channel_mix / head, each synchronized and wall-stamped).
 
 Three joined views per config:
 
@@ -30,7 +30,8 @@ t   ``ts_us`` — wall-clock stamp (tracer epoch); ordinal in stable mode
 k   ``kind`` — always ``"layer"``
 p   provenance tuple ``["engine", "s<step>", "<op>[.g<group>]"]``
 s   engine step index
-o   operator name (``embed``/``attn``/``mlp``/``attn_local``/... /``head``)
+o   operator name (``embed``/``attn``/``mlp``/``attn_local``/``time_mix``/
+    ... /``head``)
 g   group index (-1 for embed/head)
 n   ``dur_us`` — segment wall microseconds, stamped after the segment's
     device work finished; 0 in stable mode
@@ -340,10 +341,12 @@ def analytic_op_costs(cfg, batch: int, cache_len: int) -> List[OpCost]:
 
     FLOPs count exactly the matmul-like (``dot``) terms — projections,
     attention scores/PV over the full static cache span (the decode path
-    computes masked attention over all ``cache_len`` positions), MLP and
-    the head — because that is what a FLOP counter counts.  Elementwise
-    work (softmax, norms, gates, rotary) and gathers are 0 dot-FLOPs by
-    that convention.  Dense family (``profile_ops`` raises for the others).
+    computes masked attention over all ``cache_len`` positions), MLP,
+    RWKV mixing matrices and the decay-scan output dot, and the head —
+    because that is what a FLOP counter counts.  Elementwise work
+    (softmax, norms, gates, rotary, state outer products) and gathers are 0
+    dot-FLOPs by that convention.  Dense and ssm families (``profile_ops``
+    raises for the others).
     """
     from repro_torch.models.decode import profile_ops
     from repro_torch.models.params import gated_mlp
@@ -370,6 +373,26 @@ def analytic_op_costs(cfg, batch: int, cache_len: int) -> List[OpCost]:
         byts = n_mat * d * f * es + 2 * B * d * es + 2 * B * f * es
         return OpCost(op, g, flops, byts)
 
+    def time_mix_cost(g: int) -> OpCost:
+        lora_w, lora_mix = 64, 32
+        flops = 2 * B * (d * 5 * lora_mix          # ddlerp mix_A
+                         + 5 * d * lora_mix        # ddlerp mix_B
+                         + 4 * d * h * dh          # wr/wk/wv/wg
+                         + d * lora_w + lora_w * d  # decay lora
+                         + h * dh * dh             # decay-scan output dot
+                         + h * dh * d)             # wo
+        w = (d * 5 * lora_mix + 5 * lora_mix * d + 4 * d * h * dh
+             + d * lora_w + lora_w * d + h * dh * d + 5 * d) * es
+        state = 2 * B * h * dh * dh * 4            # wkv state r/w (f32)
+        state += 2 * B * d * es                    # shift state r/w
+        return OpCost("time_mix", g, flops, w + state + 2 * B * d * es)
+
+    def channel_mix_cost(g: int) -> OpCost:
+        flops = 2 * B * (d * f + f * d + d * d)
+        byts = ((2 * d * f + d * d) * es + 2 * B * d * es  # shift r/w
+                + 2 * B * d * es)
+        return OpCost("channel_mix", g, flops, byts)
+
     costs: List[OpCost] = []
     for op, g in profile_ops(cfg):
         if op == "embed":
@@ -381,6 +404,10 @@ def analytic_op_costs(cfg, batch: int, cache_len: int) -> List[OpCost]:
             costs.append(attn_cost(op, g))
         elif op in ("mlp", "mlp_local", "mlp_global"):
             costs.append(mlp_cost(op, g))
+        elif op == "time_mix":
+            costs.append(time_mix_cost(g))
+        elif op == "channel_mix":
+            costs.append(channel_mix_cost(g))
         else:
             raise ValueError(op)
     return costs

@@ -171,3 +171,40 @@ def test_check_tables_hold_on_the_cpu(table):
         np.testing.assert_allclose(out.float().numpy(), want.float().numpy(),
                                    rtol=c.rtol, atol=c.atol, err_msg=c.label)
     assert [m.launches for m in counters] == before
+
+
+@pytest.mark.cuda
+def test_rwkv_on_the_card_matches_the_cpu():
+    """rwkv6-7b reduced, float32: twelve teacher-forced serve steps and a
+    forward of 128 tokens (two scan chunks) on the card give the CPU's
+    logits at 1e-5 (of the logits' scale, at least 1); in bf16 the card's
+    wkv state is float32 after the first step (ROADMAP.md C.13)."""
+    _card()
+    import dataclasses
+    from repro_torch.models import decode, get_config, params, transformer
+    cfg = get_config("rwkv6-7b").reduced()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        prm = params.init_params(cfg, seed=0, device=dev)
+        cache = decode.init_cache(cfg, prm, 2, 16)
+        out = []
+        for i in range(12):
+            logits, cache = decode.serve_step(cfg, prm, cache,
+                                              tokens[:, i:i + 1].to(dev), i)
+            out.append(logits.cpu().numpy())
+        full, _ = transformer.forward(cfg, prm, tokens.to(dev))
+        runs[dev] = (np.stack(out), full.cpu().numpy())
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    prm = params.init_params(bf, seed=0, device="cuda")
+    cache = decode.init_cache(bf, prm, 2, 16)
+    assert cache["lyr"]["wkv"].dtype == torch.bfloat16
+    logits, cache = decode.serve_step(bf, prm, cache,
+                                      tokens[:, :1].to("cuda"), 0)
+    assert cache["lyr"]["wkv"].dtype == torch.float32
+    assert cache["lyr"]["wkv"].device.type == "cuda"
+    assert bool(torch.isfinite(logits).all())

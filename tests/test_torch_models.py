@@ -327,7 +327,7 @@ def test_chunked_ce_over_several_chunks():
                F32)
 
 
-@pytest.mark.parametrize("name", ["olmoe-1b-7b", "rwkv6-7b", "zamba2-7b",
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "zamba2-7b",
                                   "whisper-large-v3", "llama-3.2-vision-11b"])
 def test_other_families_are_refused(name):
     cfg = get_config(name).reduced()

@@ -3,14 +3,15 @@ CLI against the reference's, on the CPU.
 
 Port twins of ``tests/test_serve_spans.py`` and ``tests/test_serve_faults.py``
 (the same checks, run against ``repro_torch.launch.serve.Engine``; the slot
-surgery twin is in ``tests/test_torch_decode.py``, and the non-transformer
-family run is gemma2's local/global pair until RWKV6 is ported), the
-layer-profiler join of ``tests/test_modelprof.py``, and the two CLIs writing
-byte-identical ``--stable`` span streams and layer records under one seed,
-plain and under a fault plan.  The JAX-free modules the port copies
+surgery twin is in ``tests/test_torch_decode.py``, and RWKV6's engine
+twins in ``tests/test_torch_rwkv.py``), the layer-profiler join of
+``tests/test_modelprof.py``, and the two CLIs writing byte-identical
+``--stable`` span streams and layer records under one seed, plain, under a
+fault plan, and for RWKV6.  The JAX-free modules the port copies
 verbatim are held to be the reference's files.
 """
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -697,10 +698,19 @@ def test_engine_refuses_params_on_another_device():
 # == the port's CLI against the reference's =================================
 
 
-def _reference_cli(monkeypatch, args, out, warm=False):
+# the reference CLI's wall-clock gate on a step's layer coverage
+# (``repro.obs.modelprof.join_mismatches``): a step that waits on the host
+# (a JAX compile, a busy machine) trips it whatever the streams hold
+_COVERAGE_GATE = re.compile(r"^step \d+: coverage [0-9.]+ < ")
+
+
+def _reference_cli(monkeypatch, args, out, warm=False, tries=3):
     """The reference's CLI in this process.  ``warm``: one run first, whose
     own layer-coverage gate may fail on the JAX compiles it triggers
-    (a first step that compiles takes ~0.2 s against ~1 ms of layers)."""
+    (a first step that compiles takes ~0.2 s against ~1 ms of layers).
+    The run that writes the streams is repeated, at most ``tries`` times in
+    all, when and only when every problem it raises is that coverage gate;
+    any other failure fails at once."""
     from repro.launch import serve as ref_serve
     if warm:
         monkeypatch.setattr("sys.argv", ["serve", *args,
@@ -713,7 +723,44 @@ def _reference_cli(monkeypatch, args, out, warm=False):
     monkeypatch.setattr("sys.argv", ["serve", *args, "--spans-out",
                                      f"{out}.spans", "--profile-layers",
                                      f"{out}.layers"])
-    ref_serve.main()
+    for attempt in range(1, tries + 1):
+        try:
+            ref_serve.main()
+            return
+        except AssertionError as e:
+            problems = e.args[0] if e.args else None
+            only_coverage = (isinstance(problems, list) and problems and all(
+                isinstance(p, str) and _COVERAGE_GATE.match(p)
+                for p in problems))
+            if not only_coverage or attempt == tries:
+                raise
+
+
+def test_reference_cli_repeats_only_on_the_coverage_gate(tmp_path,
+                                                         monkeypatch):
+    """``_reference_cli`` reruns the reference while every problem its CLI
+    raises is the wall-clock coverage gate, at most three runs in all; any
+    other problem fails at once."""
+    from repro.launch import serve as ref_serve
+    gate = "step 34: coverage 0.04 < 0.05 (layers 783us of step 17622us)"
+    for raised, runs, fails in (([[gate], [gate]], 3, False),
+                                ([[gate]] * 3, 3, True),
+                                ([[gate, "step 2: span event has no layer "
+                                          "records"]], 1, True),
+                                (["requests lost by the engine"], 1, True)):
+        calls = []
+
+        def main(raised=raised, calls=calls):
+            calls.append(1)
+            if len(calls) <= len(raised):
+                raise AssertionError(raised[len(calls) - 1])
+        monkeypatch.setattr(ref_serve, "main", main)
+        if fails:
+            with pytest.raises(AssertionError):
+                _reference_cli(monkeypatch, [], tmp_path / "ref")
+        else:
+            _reference_cli(monkeypatch, [], tmp_path / "ref")
+        assert len(calls) == runs, raised
 
 
 @pytest.mark.parametrize("faulty", [False, True])
@@ -748,6 +795,25 @@ def test_cli_streams_byte_identical_to_reference(tmp_path, monkeypatch, capsys,
         assert mine and mine == (tmp_path / f"ref.{kind}").read_bytes(), kind
     if faulty:
         assert b"retry" in (tmp_path / "port.spans").read_bytes()
+
+
+def test_rwkv_cli_streams_byte_identical_to_reference(tmp_path, monkeypatch,
+                                                      capsys):
+    """``--arch rwkv6-7b`` (the ssm family, its time_mix / channel_mix
+    layer records): the port's ``--stable`` streams are the reference's."""
+    args = ["--arch", "rwkv6-7b", "--slots", "2", "--requests", "6", "--gen",
+            "6", "--prompt-len", "4", "--arrival-mean", "0.5", "--stable"]
+    _reference_cli(monkeypatch, args, tmp_path / "ref", warm=True)
+    capsys.readouterr()
+    SV.main(["--device", "cpu", *args,
+             "--spans-out", str(tmp_path / "port.spans"),
+             "--profile-layers", str(tmp_path / "port.layers")])
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith("OK") and "rwkv6-7b: 6/6 requests" in out
+    for kind in ("spans", "layers"):
+        mine = (tmp_path / f"port.{kind}").read_bytes()
+        assert mine and mine == (tmp_path / f"ref.{kind}").read_bytes(), kind
+    assert b'"time_mix"' in (tmp_path / "port.layers").read_bytes()
 
 
 @pytest.mark.parametrize("path", ["obs/metrics.py", "obs/spans.py",
