@@ -52,23 +52,31 @@ toolkit.  Phases:
    and the ten costliest functions of a ``cProfile`` of them;
 8. the decode and serving path (``repro_torch.models``,
    ``repro_torch.launch.serve``), for each architecture of
-   ``SERVE_ARCHS`` at full width: qwen2-0.5b (dense) and rwkv6-7b (ssm,
-   RWKV6).  Its weights are drawn once from a numpy seed (the reference's
-   draw) and streamed leaf by leaf to the card in float32
-   (``params.stream_params``; the draw's seconds are printed): ``decode vs
-   forward`` feeds 16 tokens of 2 sequences teacher-forced through
-   ``serve_step`` in float32 without TF32 and holds every position's logits
-   against the port's ``forward`` on the card at 2e-2
-   (``tests/test_decode_consistency.py``), and the first 4 steps against the
-   same steps on the CPU at 2e-2, at full width and every layer for
-   qwen2-0.5b, the first 2 layers for rwkv6-7b (listed as ``reduced``);
+   ``SERVE_ARCHS`` at full width: qwen2-0.5b (dense), rwkv6-7b (ssm,
+   RWKV6), zamba2-7b (hybrid: Mamba2 and one shared attention block) and
+   olmoe-1b-7b (moe, banked expert dispatch).  Its weights are drawn once
+   from a numpy seed (the reference's draw) and streamed leaf by leaf to the
+   card in float32 (``params.stream_params``; the draw's seconds are
+   printed): ``decode vs forward`` feeds 16 tokens of 2 sequences
+   teacher-forced through ``serve_step`` in float32 without TF32 and holds
+   every position's logits against the port's ``forward`` on the card at
+   2e-2 (``tests/test_decode_consistency.py``; olmoe at its capacity factor
+   8.0, the override printed; olmoe's gated at its first 4 of 16 layers,
+   where float32 rounding, amplified layer by layer by the seeded
+   full-width weights, stays under it, with every layer's distance and the
+   forward's spread under a one-ulp change of its input printed beside
+   it), and the first 4 steps against the same steps
+   on the CPU at 2e-2, at full width and every layer for qwen2-0.5b, the
+   first groups of the others (2 of rwkv6-7b's 32, 1 of zamba2-7b's 27 with
+   its shared block, 2 of olmoe-1b-7b's 16; listed as ``reduced``);
    ``serve`` casts the weights to bf16 in place (``params.cast_params``)
    and runs ``Engine`` (4 slots, 8 requests of prompt 8 and gen 16 on a
    seeded arrival trace) with a ``MetricsRegistry`` and a ``SpanTracer``:
    every request finishes, every logit is finite, the spans validate, and
    one JSON ``serve`` line gives tokens/s, steps, step wall and device time,
    the device's busy share, the cache's bytes at init and after the first
-   step (RWKV6's wkv state turns float32 there), memory and the card; the
+   step (RWKV6's wkv state and zamba2's Mamba state turn float32 there;
+   both must equal the reference's layout), memory and the card; the
    same requests with a ``LayerProfiler`` give the time of every operator
    of ``decode.profile_ops`` and a join that closes; ``serve chaos`` runs
    the reduced bf16 config twice under one seeded ``FaultPlan`` with
@@ -789,10 +797,23 @@ CARD = "cuda"
 SERVE_SEED = 0
 DECODE_TOL = 2e-2            # tests/test_decode_consistency.py:60
 
-# the served architectures at full width, each with the depth of its card vs
-# CPU check (None: every layer; rwkv6-7b's 30 GB of float32 weights would
-# not fit a host of unknown size, so that check runs its first 2 layers)
-SERVE_ARCHS = (("qwen2-0.5b", None), ("rwkv6-7b", 2))
+# the served architectures at full width, each with the depth in groups of
+# its card vs CPU check and of its gated decode vs forward check (None:
+# every group).  The float32 weights of the 7B models, 18-30 GB, would not
+# fit a host of unknown size, so the card vs CPU checks run their first
+# groups: ~2.4 GB of host copies for zamba2-7b's, its shared block
+# included, ~4.6 GB for olmoe-1b-7b's.  olmoe-1b-7b's seeded full-width
+# model amplifies float32 rounding layer by layer (its blocks are drawn at
+# std 1/sqrt(16), ROADMAP.md C.6, so its attention scores reach ~100): its
+# forward itself moves by ~0.26 on an H100 under a one-ulp change of its
+# input (the row's ``forward_spread_one_ulp_input``), more than the 2e-2 the
+# check holds, so its decode vs forward is gated at its first 4 layers and
+# printed at all 16
+SERVE_ARCHS = (("qwen2-0.5b", None, None), ("rwkv6-7b", 2, None),
+               ("zamba2-7b", 1, None), ("olmoe-1b-7b", 2, 4))
+# tests/test_decode_consistency.py:27-31: the full-sequence forward may drop
+# tokens at a tight capacity while per-token decode never does
+DECODE_OVERRIDES = {"moe": {"moe_capacity_factor": 8.0}}
 
 
 class ServePath:
@@ -801,7 +822,8 @@ class ServePath:
     streamed leaf by leaf to the card in float32; the serve phase casts them
     to the model dtype in place."""
 
-    def __init__(self, arch: str, cpu_layers: Optional[int]):
+    def __init__(self, arch: str, cpu_groups: Optional[int],
+                 decode_groups: Optional[int] = None):
         from repro_torch.launch import faults, resilience, serve
         from repro_torch.models import decode, get_config, params, transformer
         from repro_torch.obs import modelprof, spans, traffic
@@ -813,7 +835,9 @@ class ServePath:
         self.arch = arch
         self.cfg = get_config(arch)
         self.reduced = get_config(arch).reduced()
-        self.cpu_layers = cpu_layers or self.cfg.num_layers
+        n = self.cfg.num_groups
+        self.cpu_groups = min(cpu_groups or n, n)
+        self.decode_groups = min(decode_groups or n, n)
         t0 = time.perf_counter()
         self.prm = params.stream_params(self.cfg, SERVE_SEED, CARD, "float32")
         torch.cuda.synchronize()
@@ -838,11 +862,15 @@ def _to(tree, dev):
 
 def phase_decode_vs_forward(sp: ServePath) -> dict:
     """Teacher-forced decode against forward at full width in float32, on
-    the card; and the first steps of the first ``cpu_layers`` layers, at
-    full width, on the card against the same on the CPU."""
+    the card, gated at the first ``decode_groups`` groups and printed at
+    every group, beside the forward's own spread under a one-ulp change of
+    its input (each embedding row scaled by 1 + 2**-23); and the first steps
+    of the first ``cpu_groups`` groups, at full width, on the card against
+    the same on the CPU."""
     import dataclasses
     from repro_torch.device import full_f32
-    cfg = dataclasses.replace(sp.cfg, dtype="float32")
+    overrides = DECODE_OVERRIDES.get(sp.cfg.family, {})
+    cfg = dataclasses.replace(sp.cfg, dtype="float32", **overrides)
     b, s, cpu_steps = 2, 16, 4
     tokens = torch.from_numpy(np.random.default_rng(16).integers(
         0, cfg.vocab_size, (b, s)))
@@ -853,29 +881,56 @@ def phase_decode_vs_forward(sp: ServePath) -> dict:
                                                i)[0] for i in range(steps)],
                          dim=1).cpu()
 
+    def forward(c, prm):
+        with full_f32():
+            return sp.transformer.forward(c, prm, toks)[0].cpu()
+
     toks = tokens.to(CARD)
     card = decode(cfg, sp.prm, toks, s)
-    with full_f32():
-        full = sp.transformer.forward(cfg, sp.prm, toks)[0].cpu()
-    cut = dataclasses.replace(cfg, num_layers=sp.cpu_layers)
+    full = forward(cfg, sp.prm)
+    ulp = forward(cfg, dict(sp.prm, embed=sp.prm["embed"] * (1 + 2 ** -23)))
+    spread = float((ulp - full).abs().max())
+    del ulp
+    gated, gated_card, gated_full = cfg, card, full
+    if sp.decode_groups < cfg.num_groups:
+        gated = dataclasses.replace(
+            cfg, num_layers=sp.decode_groups * cfg.group_size)
+        gated_prm = _first_groups(sp.prm, sp.decode_groups)
+        gated_card = decode(gated, gated_prm, toks, s)
+        gated_full = forward(gated, gated_prm)
+    cut = dataclasses.replace(cfg, num_layers=sp.cpu_groups * cfg.group_size)
     cut_prm = _first_groups(sp.prm, cut.num_groups)
     cut_card = decode(cut, cut_prm, toks, cpu_steps)
     cut_cpu = decode(cut, _to(cut_prm, "cpu"), tokens, cpu_steps)
     torch.cuda.empty_cache()
     for label, got in (("decode", card), ("forward", full),
+                       ("decode, gated", gated_card), ("forward, gated", gated_full),
                        ("card, cut", cut_card), ("cpu, cut", cut_cpu)):
         _check(got.shape[0] == b and got.shape[2] == cfg.vocab_size
                and bool(torch.isfinite(got).all()), f"{label}: shape or finite")
-    per_pos = (card - full).abs().amax(dim=(0, 2))
+    per_pos = (gated_card - gated_full).abs().amax(dim=(0, 2))
+    per_pos_all = (card - full).abs().amax(dim=(0, 2))
     vs_cpu = float((cut_card - cut_cpu).abs().max())
+    reduced = []
+    if gated.num_layers < cfg.num_layers:
+        reduced.append(f"decode vs forward gated at {gated.num_layers} of "
+                       f"{cfg.num_layers} layers (float32 conditioning; every "
+                       f"layer printed)")
+    if cut.num_layers < cfg.num_layers:
+        reduced.append(f"card vs cpu: {sp.cpu_groups} of {cfg.num_groups} "
+                       f"groups, {cut.num_layers} of {cfg.num_layers} layers "
+                       f"(host memory)")
     row = {"arch": sp.arch, "batch": b, "tokens": s, "dtype": "float32",
            "max_abs_decode_vs_forward": float(per_pos.max()),
            "per_position": [float(x) for x in per_pos],
+           "decode_layers": gated.num_layers,
+           "max_abs_decode_vs_forward_all_layers": float(per_pos_all.max()),
+           "per_position_all_layers": [float(x) for x in per_pos_all],
+           "forward_spread_one_ulp_input": spread,
            "max_abs_card_vs_cpu_first_steps": vs_cpu, "cpu_steps": cpu_steps,
-           "cpu_layers": sp.cpu_layers, "layers": cfg.num_layers,
-           "reduced": ([] if sp.cpu_layers == cfg.num_layers else
-                       [f"card vs cpu: {sp.cpu_layers} of {cfg.num_layers} "
-                        f"layers (host memory)"]),
+           "cpu_groups": sp.cpu_groups, "cpu_layers": cut.num_layers,
+           "layers": cfg.num_layers, "overrides": overrides,
+           "reduced": reduced,
            "logit_scale": float(full.abs().max()), "tol": DECODE_TOL}
     print(json.dumps({"decode_vs_forward": row}))
     _check(row["max_abs_decode_vs_forward"] < DECODE_TOL,
@@ -892,6 +947,25 @@ def _serve_requests(sp: ServePath, cfg, requests: int, prompt: int, gen: int,
     return [(t.arrival_step, sp.serve.Request(
         t.rid, rng.integers(1, cfg.vocab_size, size=t.prompt_len).astype(np.int32),
         t.gen_len)) for t in trace]
+
+
+def _reference_cache_bytes(sp: ServePath, cfg, batch: int, max_len: int):
+    """The reference's cache bytes at init and after its first step, from
+    the cache's shapes: every leaf in the model dtype at init; the recurrent
+    states its step returns in float32 (RWKV6's ``wkv``, Mamba's ``h``)
+    float32 after (``src/repro/models/decode.py``)."""
+    shapes, es = [], torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+
+    def walk(tree, key=""):
+        if isinstance(tree, tuple):
+            shapes.append((key, int(np.prod(tree))))
+        else:
+            for k, v in tree.items():
+                walk(v, k)
+    walk(sp.decode.cache_shapes(cfg, batch, max_len))
+    init = sum(n for _, n in shapes) * es
+    return [init, init + sum(n * (4 - es) for k, n in shapes
+                             if k in ("wkv", "h"))]
 
 
 def phase_serve(sp: ServePath) -> dict:
@@ -923,8 +997,9 @@ def phase_serve(sp: ServePath) -> dict:
         _check(all(len(r.out) == gen for r in done), f"{label}: short outputs")
 
     # 1. checked: every step's logits finite, every request finished; the
-    # cache's bytes at init and after the first step (RWKV6's wkv state is
-    # float32 from then on, ROADMAP.md C.13)
+    # cache's bytes at init and after the first step (RWKV6's wkv state and
+    # Mamba's h are float32 from then on, ROADMAP.md C.13, C.14) against the
+    # reference's layout
     eng = engine(spans=sp.SpanTracer())
     step, nonfinite = eng._step, []
     cache_bytes = [sp.decode.cache_num_bytes(eng.cache)]
@@ -940,6 +1015,9 @@ def phase_serve(sp: ServePath) -> dict:
     run(eng)
     finished(eng, "checked run")
     _check(not nonfinite, f"non-finite logits at steps {nonfinite[:5]}")
+    layout = _reference_cache_bytes(sp, cfg, slots, max_len)
+    _check(cache_bytes == layout, f"cache bytes {cache_bytes} at init and "
+                                  f"after step 1, the reference's {layout}")
 
     # 2. timed, with metrics and spans (the CLI's instruments)
     reg, tracer = sp.MetricsRegistry(), sp.SpanTracer()
@@ -1125,8 +1203,9 @@ def main() -> int:
                 name, src, replaces, cases, launches, full_f32)):
             kernels.append(results[f"{name} times"])
     run("host cost", lambda: phase_host_cost(ops, checks))
-    for arch, cpu_layers in SERVE_ARCHS:
-        if not run(f"{arch} weights", lambda: ServePath(arch, cpu_layers)):
+    for arch, cpu_groups, decode_groups in SERVE_ARCHS:
+        if not run(f"{arch} weights",
+                   lambda: ServePath(arch, cpu_groups, decode_groups)):
             continue
         sp = results.pop(f"{arch} weights")
         run(f"{arch} decode vs forward", lambda: phase_decode_vs_forward(sp))

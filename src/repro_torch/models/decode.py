@@ -1,21 +1,26 @@
-"""Decode path, dense and ssm families: cache construction + single-token
-serve step.
+"""Decode path, dense, moe, ssm and hybrid families: cache construction +
+single-token serve step.
 
 The port of ``repro.models.decode``.  The cache keeps the reference's
-layout, stacked over groups: dense ``{'lyr': {'k','v'}}`` of
+layout, stacked over groups: dense and moe ``{'lyr': {'k','v'}}`` of
 (G, B, Hkv, L, dh) (gemma2: ``{'local','global'}``, the local one a ring of
 ``sliding_window`` slots), plus (G, B, Hkv, L, 1) float32 scales for an
 int8 cache; ssm (RWKV6) ``{'lyr': {'wkv', 'shift_tm', 'shift_cm'}}`` of
-(G, B, H, dh, dh) and (G, B, 1, D), no length axis.  Where the reference
-returns new caches, the port writes the cache in place and returns it:
-:func:`serve_step`, the slot surgery and the per-group list form of
-:class:`ProfiledServeStep` (views of one stacked cache) all mutate the
-tensors they are given.  One leaf changes dtype: the wkv state is created
-in the model dtype and the reference's step returns it in float32, so from
-the first step on the port holds it in float32 too, a new leaf bound in
-place of the old one (``ROADMAP.md`` C.13).  The other families raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; ``cache_specs``
-waits for the dry-run (item 20).
+(G, B, H, dh, dh) and (G, B, 1, D), no length axis; hybrid (zamba2)
+``{'mamba': {'h', 'conv'}, 'attn': {'k','v'}}``, the Mamba states of
+(G, n_mamba, B, nh, state, hd) and (G, n_mamba, B, K-1, CH) behind two
+stacked axes, and the shared block's KV cache, one per group.  Where the
+reference returns new caches, the port writes the cache in place and
+returns it: :func:`serve_step`, the slot surgery and the per-group list
+form of :class:`ProfiledServeStep` (views of one stacked cache) all mutate
+the tensors they are given.  The recurrent states change dtype: RWKV6's
+wkv state and Mamba's ``h`` are created in the model dtype and the
+reference's step returns them in float32, so from the first step on the
+port holds them in float32 too, a new leaf bound in place of the old one
+(``ROADMAP.md`` C.13, C.14).  The moe step skips the router's auxiliary
+losses, which the reference's jitted step computes and discards.  audio and
+vlm raise ``NotImplementedError`` naming their ``ROADMAP.md`` item;
+``cache_specs`` waits for the dry-run (item 20).
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ import torch
 
 from ..device import full_f32
 from . import attention as A
+from . import mamba as M
+from . import moe as MOE
 from . import rwkv as R
 from .common import embed, lm_logits, norm
 from .config import ModelConfig
@@ -68,6 +75,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Any:
     require_ported(cfg)
     if cfg.family == "ssm":
         per = {"lyr": R.rwkv_cache_shape(cfg, batch)}
+    elif cfg.family == "hybrid":
+        n_mamba = cfg.hybrid_attn_every - 1
+        per = {"mamba": _stack_shapes(n_mamba, M.mamba_cache_shape(cfg, batch)),
+               "attn": _kv_entry(cfg, batch, max_len)}
     elif cfg.local_global:
         local_len = min(max_len, cfg.sliding_window)
         per = {"local": _kv_entry(cfg, batch, local_len),
@@ -111,18 +122,36 @@ def init_cache(cfg: ModelConfig, params, batch: int, max_len: int):
 # ---------------------------------------------------------------------------
 
 
-def _dense_decode(cfg, p, x1, c, pos, window=0, ring=False):
+def _attn_half(cfg, p, x1, c, pos, window=0, ring=False):
+    """A layer's attention half: ln1, attention against the cache (written
+    in place), the post-norm where the layer has one, residual.  Also the
+    moe layer's, which the reference writes without softcap or post-norm:
+    no moe config has either."""
     h = norm(cfg, p["ln1"], x1)
     a, c_new = A.attn_decode(cfg, p["attn"], h, c, pos, window=window,
                              attn_softcap=cfg.attn_softcap, ring=ring)
     if "ln1_post" in p:
         a = norm(cfg, p["ln1_post"], a)
-    x1 = x1 + a
+    return x1 + a, c_new
+
+
+def _mlp_half(cfg, p, x1):
     h = norm(cfg, p["ln2"], x1)
     m = mlp_block(cfg, p["mlp"], h)
     if "ln2_post" in p:
         m = norm(cfg, p["ln2_post"], m)
-    return x1 + m, c_new
+    return x1 + m
+
+
+def _dense_decode(cfg, p, x1, c, pos, window=0, ring=False):
+    x1, c_new = _attn_half(cfg, p, x1, c, pos, window=window, ring=ring)
+    return _mlp_half(cfg, p, x1), c_new
+
+
+def _moe_ffn(cfg, p, x1):
+    h = norm(cfg, p["ln2"], x1)
+    y, _ = MOE.moe_block(cfg, p["moe"], h, aux=False)
+    return x1 + y
 
 
 def _write(c: Dict, new: Dict) -> None:
@@ -131,29 +160,68 @@ def _write(c: Dict, new: Dict) -> None:
         c[key].copy_(val)
 
 
-def _wkv_to_f32(cfg: ModelConfig, cache) -> None:
-    """C.13: the reference's step returns the wkv state in float32, whatever
-    the cache's dtype, so after its first step the state is float32.  Bind a
-    float32 copy in place of a state held in another dtype (the values are
-    unchanged: the upcast is exact); the list form gets views of one stacked
-    float32 tensor."""
-    if cfg.family != "ssm":
+def _time_mix(cfg, p, x1, c):
+    x1, new = R.rwkv_time_mix_step(cfg, p, x1, c)
+    _write(c, new)
+    return x1
+
+
+def _channel_mix(cfg, p, x1, c):
+    x1, new = R.rwkv_channel_mix_step(cfg, p, x1, c)
+    _write(c, new)
+    return x1
+
+
+def _mamba_layers(cfg, lps, x1, lcs):
+    """A hybrid group's Mamba layers, in order, each adding its output to
+    the residual and writing its cache entries in place."""
+    for j in range(cfg.hybrid_attn_every - 1):
+        lc = group_params(lcs, j)
+        delta, new = M.mamba_decode_step(cfg, group_params(lps, j), x1, lc)
+        _write(lc, new)
+        x1 = x1 + delta
+    return x1
+
+
+# the recurrent state each family's step returns in float32, by cache path
+_F32_STATES = {"ssm": ("lyr", "wkv"), "hybrid": ("mamba", "h")}
+
+
+def _states_to_f32(cfg: ModelConfig, cache) -> None:
+    """C.13, C.14: the reference's step returns RWKV6's wkv state and
+    Mamba's ``h`` in float32, whatever the cache's dtype, so after its first
+    step the state is float32.  Bind a float32 copy in place of a state held
+    in another dtype (the values are unchanged: the upcast is exact); the
+    list form gets views of one stacked float32 tensor."""
+    if cfg.family not in _F32_STATES:
         return
+    part, key = _F32_STATES[cfg.family]
     if isinstance(cache, list):
-        if cache[0]["lyr"]["wkv"].dtype != torch.float32:
-            stacked = torch.stack([c["lyr"]["wkv"] for c in cache]).float()
+        if cache[0][part][key].dtype != torch.float32:
+            stacked = torch.stack([c[part][key] for c in cache]).float()
             for g, c in enumerate(cache):
-                c["lyr"]["wkv"] = stacked[g]
-    elif cache["lyr"]["wkv"].dtype != torch.float32:
-        cache["lyr"]["wkv"] = cache["lyr"]["wkv"].float()
+                c[part][key] = stacked[g]
+    elif cache[part][key].dtype != torch.float32:
+        cache[part][key] = cache[part][key].float()
 
 
-def _group_decode(cfg: ModelConfig, pos):
+def _group_decode(cfg: ModelConfig, params, pos):
     require_ported(cfg)
     if cfg.family == "ssm":
         def step(x1, gp, gc):
             x1, new = R.rwkv_decode_step(cfg, gp["lyr"], x1, gc["lyr"])
             _write(gc["lyr"], new)
+            return x1, gc
+    elif cfg.family == "moe":
+        def step(x1, gp, gc):
+            x1, _ = _attn_half(cfg, gp["lyr"], x1, gc["lyr"], pos)
+            return _moe_ffn(cfg, gp["lyr"], x1), gc
+    elif cfg.family == "hybrid":
+        shared = params["shared_block"]
+
+        def step(x1, gp, gc):
+            x1 = _mamba_layers(cfg, gp["mamba"], x1, gc["mamba"])
+            x1, _ = _dense_decode(cfg, shared, x1, gc["attn"], pos)
             return x1, gc
     elif cfg.local_global:
         def step(x1, gp, gc):
@@ -177,10 +245,10 @@ def serve_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, pos
     Returns (logits (B, 1, V) float32, the cache, updated in place).
     """
     pos = int(pos)
-    _wkv_to_f32(cfg, cache)
+    _states_to_f32(cfg, cache)
     with full_f32():
         x1 = embed(cfg, params, tokens)
-        step = _group_decode(cfg, pos)
+        step = _group_decode(cfg, params, pos)
         for i in range(cfg.num_groups):
             x1, _ = step(x1, group_params(params["blocks"], i),
                          group_params(cache, i))
@@ -198,9 +266,11 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 def cache_max_len(cfg: ModelConfig, cache) -> int:
     """Decoder self-attention cache length (the position-table size): the
-    largest ``shape[-2]`` of a leaf with four axes or more.  For RWKV6 that
-    is the wkv state's ``head_dim``, as in the reference, which has no
-    length axis to read."""
+    largest ``shape[-2]`` of a leaf with four axes or more, as in the
+    reference.  For RWKV6, which has no length axis, that is the wkv
+    state's ``head_dim``; for zamba2 it also reads the Mamba ``h`` leaf's
+    ``ssm_state`` and the conv window's K-1, so it is ``max(max_len,
+    ssm_state)``."""
     return max((l.shape[-2] for l in _leaves(cache) if l.ndim >= 4),
                default=1)
 
@@ -295,9 +365,10 @@ def corrupt_cache_slot(cfg: ModelConfig, cache, slot: int):
 # Per-operator sliced serve step (layer profiling — ``obs.modelprof``)
 # ---------------------------------------------------------------------------
 
-# families with a sliced-segment decomposition in the port; the reference's
-# moe and hybrid decompositions come with their families (ROADMAP.md A)
-PROFILED_FAMILIES = ("dense", "ssm")
+# families with a sliced-segment decomposition; vlm/audio decode steps fold
+# modality cross-attention into the group and are not sliced, as in the
+# reference
+PROFILED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def profile_ops(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
@@ -313,6 +384,10 @@ def profile_ops(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
     for g in range(cfg.num_groups):
         if cfg.family == "ssm":
             ops += [("time_mix", g), ("channel_mix", g)]
+        elif cfg.family == "moe":
+            ops += [("attn", g), ("moe", g)]
+        elif cfg.family == "hybrid":
+            ops += [("scan", g), ("attn", g), ("mlp", g)]
         elif cfg.local_global:
             ops += [("attn_local", g), ("mlp_local", g),
                     ("attn_global", g), ("mlp_global", g)]
@@ -324,8 +399,9 @@ def profile_ops(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
 
 class ProfiledServeStep:
     """One decode step as a sequence of segments (embed / per-group attn and
-    mlp, or time_mix and channel_mix / head), each synchronized
-    (``torch.cuda.synchronize()`` on a card) and wall-stamped.
+    mlp, attn and moe, time_mix and channel_mix, or scan, attn and mlp /
+    head), each synchronized (``torch.cuda.synchronize()`` on a card) and
+    wall-stamped.  zamba2's attn and mlp segments run the one shared block.
 
     The same math as :func:`serve_step` in the same order, so logits and
     cache agree with the fused step bit for bit; it pays one sync per
@@ -339,7 +415,7 @@ class ProfiledServeStep:
         self.ops = profile_ops(cfg)
         self._gps = None
         self._params_id = None
-        self._aux = None            # head/embed params
+        self._aux = None            # head/embed/shared params
 
     # -- cache layout --------------------------------------------------------
 
@@ -358,35 +434,6 @@ class ProfiledServeStep:
             return torch.stack(ts)
         return stack(*groups)
 
-    # -- segments --------------------------------------------------------------
-
-    def _attn(self, p, x1, c, pos, window=0, ring=False):
-        cfg = self.cfg
-        h = norm(cfg, p["ln1"], x1)
-        a, c_new = A.attn_decode(cfg, p["attn"], h, c, pos, window=window,
-                                 attn_softcap=cfg.attn_softcap, ring=ring)
-        if "ln1_post" in p:
-            a = norm(cfg, p["ln1_post"], a)
-        return x1 + a, c_new
-
-    def _mlp(self, p, x1):
-        cfg = self.cfg
-        h = norm(cfg, p["ln2"], x1)
-        m = mlp_block(cfg, p["mlp"], h)
-        if "ln2_post" in p:
-            m = norm(cfg, p["ln2_post"], m)
-        return x1 + m
-
-    def _time_mix(self, p, x1, c):
-        x1, new = R.rwkv_time_mix_step(self.cfg, p, x1, c)
-        _write(c, new)
-        return x1
-
-    def _channel_mix(self, p, x1, c):
-        x1, new = R.rwkv_channel_mix_step(self.cfg, p, x1, c)
-        _write(c, new)
-        return x1
-
     def _sliced(self, params):
         if self._params_id != id(params):
             cfg = self.cfg
@@ -395,6 +442,8 @@ class ProfiledServeStep:
             head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
             self._aux = {"embed": params["embed"], "head_w": head,
                          "final_norm": params["final_norm"]}
+            if cfg.family == "hybrid":
+                self._aux["shared"] = params["shared_block"]
             self._params_id = id(params)
         return self._gps, self._aux
 
@@ -413,35 +462,43 @@ class ProfiledServeStep:
 
         def timed(fn, *args, **kw):
             t0 = time.perf_counter()
-            out = fn(*args, **kw)
+            out = fn(cfg, *args, **kw)
             if on_card:
                 torch.cuda.synchronize(tokens.device)
             walls.append((time.perf_counter() - t0) * 1e6)
             return out
 
-        def head(x1):
+        def head(cfg, x1):
             x1 = norm(cfg, aux["final_norm"], x1)
             key = "embed" if cfg.tie_embeddings else "lm_head"
             return lm_logits(cfg, {key: aux["head_w"]}, x1)
 
-        _wkv_to_f32(cfg, cache_groups)
+        _states_to_f32(cfg, cache_groups)
         with full_f32():
-            x1 = timed(embed, cfg, {"embed": aux["embed"]}, tokens)
+            x1 = timed(embed, {"embed": aux["embed"]}, tokens)
             for g in range(cfg.num_groups):
                 gp, gc = gps[g], cache_groups[g]
                 if cfg.family == "ssm":
-                    x1 = timed(self._time_mix, gp["lyr"], x1, gc["lyr"])
-                    x1 = timed(self._channel_mix, gp["lyr"], x1, gc["lyr"])
-                elif cfg.local_global:
-                    x1, _ = timed(self._attn, gp["local"], x1, gc["local"], pos,
-                                  window=cfg.sliding_window, ring=True)
-                    x1 = timed(self._mlp, gp["local"], x1)
-                    x1, _ = timed(self._attn, gp["global"], x1, gc["global"],
+                    x1 = timed(_time_mix, gp["lyr"], x1, gc["lyr"])
+                    x1 = timed(_channel_mix, gp["lyr"], x1, gc["lyr"])
+                elif cfg.family == "moe":
+                    x1, _ = timed(_attn_half, gp["lyr"], x1, gc["lyr"], pos)
+                    x1 = timed(_moe_ffn, gp["lyr"], x1)
+                elif cfg.family == "hybrid":
+                    x1 = timed(_mamba_layers, gp["mamba"], x1, gc["mamba"])
+                    x1, _ = timed(_attn_half, aux["shared"], x1, gc["attn"],
                                   pos)
-                    x1 = timed(self._mlp, gp["global"], x1)
+                    x1 = timed(_mlp_half, aux["shared"], x1)
+                elif cfg.local_global:
+                    x1, _ = timed(_attn_half, gp["local"], x1, gc["local"],
+                                  pos, window=cfg.sliding_window, ring=True)
+                    x1 = timed(_mlp_half, gp["local"], x1)
+                    x1, _ = timed(_attn_half, gp["global"], x1, gc["global"],
+                                  pos)
+                    x1 = timed(_mlp_half, gp["global"], x1)
                 else:
-                    x1, _ = timed(self._attn, gp["lyr"], x1, gc["lyr"], pos)
-                    x1 = timed(self._mlp, gp["lyr"], x1)
+                    x1, _ = timed(_attn_half, gp["lyr"], x1, gc["lyr"], pos)
+                    x1 = timed(_mlp_half, gp["lyr"], x1)
             logits = timed(head, x1)
         return logits, cache_groups, walls
 

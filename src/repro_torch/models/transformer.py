@@ -2,8 +2,12 @@
 
 The layer stack is a Python loop over the stacked group axis of
 ``params["blocks"]`` (the reference scans it).  The dense family (gemma2's
-local/global pair included) and the ssm family (RWKV6) run here; the other
-families raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+local/global pair included), the ssm family (RWKV6), the hybrid family
+(zamba2: two Mamba2 layers a group, then the one shared attention+MLP
+block, ``params["shared_block"]``, applied after every group) and the moe
+family (its auxiliary losses summed over groups, as the reference sums
+them) run here; audio and vlm raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -12,15 +16,16 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import attention as A
+from . import mamba as M
+from . import moe as MOE
 from . import rwkv as R
 from .common import embed, lm_logits, norm, rope_freqs
 from .config import ModelConfig
 from .mlp import mlp_block
 
 # the families the port runs, and those still to be ported, by ROADMAP.md item
-PORTED_FAMILIES = ("dense", "ssm")
-_LATER = {"hybrid": "item 15 (zamba2)", "moe": "item 16 (MoE)",
-          "audio": "item 17 (Whisper)", "vlm": "item 17 (Llama-3.2-vision)"}
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+_LATER = {"audio": "item 17 (Whisper)", "vlm": "item 17 (Llama-3.2-vision)"}
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -59,9 +64,25 @@ def dense_layer(cfg: ModelConfig, p, x, rope, *, window: int = 0):
     return x + m
 
 
-def _group_step(cfg: ModelConfig, x, gp, rope):
+def moe_layer(cfg: ModelConfig, p, x, rope, aux_acc: Dict):
+    h = norm(cfg, p["ln1"], x)
+    x = x + A.attn_block(cfg, p["attn"], h, rope=rope, causal=True)
+    h = norm(cfg, p["ln2"], x)
+    y, aux = MOE.moe_block(cfg, p["moe"], h)
+    for k, v in aux.items():
+        aux_acc[k] = aux_acc[k] + v
+    return x + y
+
+
+def _group_step(cfg: ModelConfig, params, x, gp, rope, aux: Dict):
     if cfg.family == "ssm":
         return R.rwkv_block(cfg, gp["lyr"], x)
+    if cfg.family == "moe":
+        return moe_layer(cfg, gp["lyr"], x, rope, aux)
+    if cfg.family == "hybrid":
+        for j in range(cfg.hybrid_attn_every - 1):
+            x = x + M.mamba_block(cfg, group_params(gp["mamba"], j), x)
+        return dense_layer(cfg, params["shared_block"], x, rope)
     if cfg.local_global:
         x = dense_layer(cfg, gp["local"], x, rope, window=cfg.sliding_window)
         return dense_layer(cfg, gp["global"], x, rope)
@@ -83,9 +104,14 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor
     if cfg.rope_theta:
         rope = rope_freqs(cfg.head_dim, cfg.rope_theta,
                           torch.arange(s, device=tokens.device))
+    aux: Dict = {}
+    if cfg.family == "moe":         # the reference's scan starts from zeros
+        aux = {k: torch.zeros((), device=x.device)
+               for k in ("moe_aux", "moe_zloss")}
     for i in range(cfg.num_groups):
-        x = _group_step(cfg, x, group_params(params["blocks"], i), rope)
-    return norm(cfg, params["final_norm"], x), {}
+        x = _group_step(cfg, params, x, group_params(params["blocks"], i),
+                        rope, aux)
+    return norm(cfg, params["final_norm"], x), aux
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor
@@ -122,8 +148,16 @@ def chunked_ce(cfg: ModelConfig, params, x: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
-    """Next-token cross entropy, chunked over sequence."""
+    """Next-token cross entropy (+ MoE aux losses, averaged over groups),
+    chunked over sequence."""
     tokens = batch["tokens"]
     x, aux = forward_hidden(cfg, params, tokens)
     loss = chunked_ce(cfg, params, x, tokens, mask=batch.get("mask"))
-    return loss, {"ce_loss": loss, "loss": loss}
+    metrics = {"ce_loss": loss}
+    if aux:
+        n = cfg.num_groups
+        metrics["moe_aux"] = aux["moe_aux"] / n
+        metrics["moe_zloss"] = aux["moe_zloss"] / n
+        loss = loss + 0.01 * metrics["moe_aux"] + 1e-3 * metrics["moe_zloss"]
+    metrics["loss"] = loss
+    return loss, metrics

@@ -4,8 +4,9 @@ The port of ``repro.obs.modelprof``: the middle tier of the observability
 stack, between serving spans (``obs.spans``: one wall time per engine step)
 and the hardware path's cycle counters (``core.profiler``).  One record per
 *model operator* per engine step, produced by the sliced decode step
-(``models.decode.ProfiledServeStep``: embed / per-group attn · mlp or RWKV
-time_mix · channel_mix / head, each synchronized and wall-stamped).
+(``models.decode.ProfiledServeStep``: embed / per-group attn · mlp, attn ·
+moe, RWKV time_mix · channel_mix or zamba2 scan · attn · mlp / head, each
+synchronized and wall-stamped).
 
 Three joined views per config:
 
@@ -30,8 +31,8 @@ t   ``ts_us`` — wall-clock stamp (tracer epoch); ordinal in stable mode
 k   ``kind`` — always ``"layer"``
 p   provenance tuple ``["engine", "s<step>", "<op>[.g<group>]"]``
 s   engine step index
-o   operator name (``embed``/``attn``/``mlp``/``attn_local``/``time_mix``/
-    ... /``head``)
+o   operator name (``embed``/``attn``/``mlp``/``attn_local``/``moe``/
+    ``time_mix``/``scan``/ ... /``head``)
 g   group index (-1 for embed/head)
 n   ``dur_us`` — segment wall microseconds, stamped after the segment's
     device work finished; 0 in stable mode
@@ -341,14 +342,16 @@ def analytic_op_costs(cfg, batch: int, cache_len: int) -> List[OpCost]:
 
     FLOPs count exactly the matmul-like (``dot``) terms — projections,
     attention scores/PV over the full static cache span (the decode path
-    computes masked attention over all ``cache_len`` positions), MLP,
-    RWKV mixing matrices and the decay-scan output dot, and the head —
-    because that is what a FLOP counter counts.  Elementwise work
-    (softmax, norms, gates, rotary, state outer products) and gathers are 0
-    dot-FLOPs by that convention.  Dense and ssm families (``profile_ops``
-    raises for the others).
+    computes masked attention over all ``cache_len`` positions), MLP and
+    expert products (every expert at its capacity), the router, RWKV mixing
+    matrices, Mamba's projections and conv window dot, the decay-scan
+    output dot, and the head — because that is what a FLOP counter counts.
+    Elementwise work (softmax, norms, gates, rotary, state outer products)
+    and gathers are 0 dot-FLOPs by that convention.  The families
+    ``profile_ops`` decomposes (it raises for audio and vlm).
     """
     from repro_torch.models.decode import profile_ops
+    from repro_torch.models.moe import capacity
     from repro_torch.models.params import gated_mlp
 
     B, S = batch, cache_len
@@ -373,6 +376,13 @@ def analytic_op_costs(cfg, batch: int, cache_len: int) -> List[OpCost]:
         byts = n_mat * d * f * es + 2 * B * d * es + 2 * B * f * es
         return OpCost(op, g, flops, byts)
 
+    def moe_cost(g: int) -> OpCost:
+        E, cap = cfg.num_experts, capacity(cfg, B)
+        flops = 2 * B * d * E + n_mat * 2 * E * cap * d * f
+        byts = (d * E * 4 + n_mat * E * d * f * es
+                + 2 * E * cap * d * es + 2 * B * d * es)
+        return OpCost("moe", g, flops, byts)
+
     def time_mix_cost(g: int) -> OpCost:
         lora_w, lora_mix = 64, 32
         flops = 2 * B * (d * 5 * lora_mix          # ddlerp mix_A
@@ -393,6 +403,23 @@ def analytic_op_costs(cfg, batch: int, cache_len: int) -> List[OpCost]:
                 + 2 * B * d * es)
         return OpCost("channel_mix", g, flops, byts)
 
+    def scan_cost(g: int) -> OpCost:
+        n_mamba = cfg.hybrid_attn_every - 1
+        d_inner = 2 * d
+        nh = d_inner // cfg.ssm_head_dim
+        st = cfg.ssm_state
+        ch = d_inner + 2 * st
+        proj = 2 * d_inner + 2 * st + nh
+        per = 2 * B * (d * proj                    # in_proj
+                       + ch * cfg.ssm_conv_width   # conv window dot
+                       + nh * st * cfg.ssm_head_dim  # decay-scan output
+                       + d_inner * d)              # out_proj
+        w = (d * proj + cfg.ssm_conv_width * ch + d_inner * d) * es
+        state = 2 * B * nh * st * cfg.ssm_head_dim * 4  # h state r/w
+        state += 2 * B * (cfg.ssm_conv_width - 1) * ch * es  # conv window
+        per_bytes = w + state + 2 * B * d * es
+        return OpCost("scan", g, n_mamba * per, n_mamba * per_bytes)
+
     costs: List[OpCost] = []
     for op, g in profile_ops(cfg):
         if op == "embed":
@@ -404,10 +431,14 @@ def analytic_op_costs(cfg, batch: int, cache_len: int) -> List[OpCost]:
             costs.append(attn_cost(op, g))
         elif op in ("mlp", "mlp_local", "mlp_global"):
             costs.append(mlp_cost(op, g))
+        elif op == "moe":
+            costs.append(moe_cost(g))
         elif op == "time_mix":
             costs.append(time_mix_cost(g))
         elif op == "channel_mix":
             costs.append(channel_mix_cost(g))
+        elif op == "scan":
+            costs.append(scan_cost(g))
         else:
             raise ValueError(op)
     return costs

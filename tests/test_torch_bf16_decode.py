@@ -9,9 +9,11 @@ measured against the reference's float32 evaluation of the same
 bf16-rounded weights, and the port may sit no further from it than the
 reference does, plus a margin of a quarter of the reference's own distance
 (``MARGIN``).  The dense family (qwen2-0.5b; gemma2-27b with its ring and
-softcaps) and RWKV6, whose wkv state the reference returns in float32
-whatever the cache's dtype: after the first step the port's state is
-float32 too, and its cache bytes are the reference's at every step (C.13).
+softcaps), the moe family (olmoe-1b-7b) and the recurrent ones, RWKV6 and
+zamba2, whose wkv and Mamba ``h`` states the reference returns in float32
+whatever the cache's dtype: after the first step the port's states are
+float32 too, and its cache bytes are the reference's at every step (C.13,
+C.14), in the fused cache and in the sliced step's per-group list form.
 """
 import dataclasses
 
@@ -37,7 +39,8 @@ def _step(rcfg):
     return jax.jit(lambda p, c, t, pos: RD.serve_step(rcfg, p, c, t, pos))
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma2-27b", "rwkv6-7b"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma2-27b", "rwkv6-7b",
+                                  "zamba2-7b", "olmoe-1b-7b"])
 def test_bf16_decode_no_further_from_f32_than_the_reference(name):
     cfg = dataclasses.replace(get_config(name).reduced(), dtype="bfloat16")
     rcfg = dataclasses.replace(ref_config(name).reduced(), dtype="bfloat16")
@@ -68,6 +71,11 @@ def test_bf16_decode_no_further_from_f32_than_the_reference(name):
             assert cache["lyr"]["wkv"].dtype == torch.float32
             assert str(rcache["lyr"]["wkv"].dtype) == "float32"
             assert cache["lyr"]["shift_tm"].dtype == torch.bfloat16
+        if cfg.family == "hybrid":
+            assert cache["mamba"]["h"].dtype == torch.float32
+            assert str(rcache["mamba"]["h"].dtype) == "float32"
+            assert cache["mamba"]["conv"].dtype == torch.bfloat16
+            assert cache["attn"]["k"].dtype == torch.bfloat16
     assert ref_d > 0.0
     assert port_d <= ref_d * (1 + MARGIN), \
         f"{name}: port bf16 {port_d:.4f} from f32, reference {ref_d:.4f}"
@@ -89,3 +97,43 @@ def test_rwkv_state_is_created_in_the_model_dtype():
     D.serve_step(cfg, prm, cache, torch.ones((4, 1), dtype=torch.long), 0)
     wkv = cache["lyr"]["wkv"]
     assert D.cache_num_bytes(cache) == before + wkv.numel() * 2
+
+
+@pytest.mark.parametrize("form", ["fused", "per-group list"])
+def test_mamba_state_turns_f32_after_the_first_step(form):
+    """C.14: the reference's ``init_cache`` makes the Mamba ``h`` leaves in
+    bf16, and its step returns them in float32 (``decay_scan_step``), while
+    the conv window and the shared block's k/v stay bf16.  The port binds
+    float32 states before its first step, in the fused cache and in the
+    sliced step's list form, so its cache bytes are the reference's at init
+    and after every step."""
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(),
+                              dtype="bfloat16")
+    rcfg = dataclasses.replace(ref_config("zamba2-7b").reduced(),
+                               dtype="bfloat16")
+    prm = P.init_params(cfg, seed=0, device="cpu")
+    rprm = RP.init_params(rcfg, seed=0)
+    if form == "fused":
+        cache, rcache = D.init_cache(cfg, prm, 4, 8), RD.init_cache(rcfg, rprm, 4, 8)
+        step, rstep = D.make_serve_step(cfg), _step(rcfg)
+        hs = lambda c: [c["mamba"]["h"]]                     # noqa: E731
+    else:
+        cache = D.ProfiledServeStep.init_cache(cfg, prm, 4, 8)
+        rcache = RD.ProfiledServeStep.init_cache(rcfg, rprm, 4, 8)
+        prof, rprof = D.make_profiled_serve_step(cfg), RD.ProfiledServeStep(rcfg)
+        step = lambda *a: prof(*a)[:2]                        # noqa: E731
+        rstep = lambda *a: rprof(*a)[:2]                      # noqa: E731
+        hs = lambda c: [g["mamba"]["h"] for g in c]           # noqa: E731
+    assert all(h.dtype == torch.bfloat16 for h in hs(cache))
+    assert all(str(h.dtype) == "bfloat16" for h in hs(rcache))
+    before = D.cache_num_bytes(cache)
+    assert before == RD.cache_num_bytes(rcache)
+    tok = np.ones((4, 1), np.int64)
+    for i in range(2):
+        _, cache = step(prm, cache, torch.from_numpy(tok), i)
+        _, rcache = rstep(rprm, rcache, jnp.asarray(tok, jnp.int32),
+                          jnp.asarray(i, jnp.int32))
+        assert all(h.dtype == torch.float32 for h in hs(cache))
+        assert all(str(h.dtype) == "float32" for h in hs(rcache))
+        assert D.cache_num_bytes(cache) == RD.cache_num_bytes(rcache) \
+            == before + sum(h.numel() * 2 for h in hs(cache))

@@ -208,3 +208,41 @@ def test_rwkv_on_the_card_matches_the_cpu():
     assert cache["lyr"]["wkv"].dtype == torch.float32
     assert cache["lyr"]["wkv"].device.type == "cuda"
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["zamba2-7b", "olmoe-1b-7b"])
+def test_hybrid_and_moe_serve_step_on_the_card_match_the_cpu(name):
+    """zamba2-7b and olmoe-1b-7b reduced, float32: twelve teacher-forced
+    serve steps on the card give the CPU's logits within 2e-2
+    (tests/test_decode_consistency.py's tolerance); every cache leaf stays on
+    the card, and in bf16 the Mamba state is float32 after the first step
+    (ROADMAP.md C.14)."""
+    _card()
+    import dataclasses
+    from repro_torch.models import decode, get_config, params
+    cfg = get_config(name).reduced()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        prm = params.init_params(cfg, seed=0, device=dev)
+        cache = decode.init_cache(cfg, prm, 2, 16)
+        out = []
+        for i in range(12):
+            logits, cache = decode.serve_step(cfg, prm, cache,
+                                              tokens[:, i:i + 1].to(dev), i)
+            out.append(logits.cpu().numpy())
+        assert all(t.device.type == dev for t in decode._leaves(cache))
+        runs[dev] = np.stack(out)
+    assert np.isfinite(runs["cuda"]).all()
+    assert float(np.abs(runs["cuda"] - runs["cpu"]).max()) < 2e-2
+    if cfg.family == "hybrid":
+        bf = dataclasses.replace(cfg, dtype="bfloat16")
+        prm = params.init_params(bf, seed=0, device="cuda")
+        cache = decode.init_cache(bf, prm, 2, 16)
+        logits, cache = decode.serve_step(bf, prm, cache,
+                                          tokens[:, :1].to("cuda"), 0)
+        assert cache["mamba"]["h"].dtype == torch.float32
+        assert cache["mamba"]["conv"].dtype == torch.bfloat16
+        assert bool(torch.isfinite(logits).all())

@@ -1,9 +1,10 @@
 """The port's decode path against the reference's, on the CPU.
 
-``repro_torch.models.decode`` (dense and ssm families) against
-``repro.models.decode`` on the same weights and tokens: the serve step's
-logits step by step at 1e-5 in float32 (plain, ring and int8 caches, and
-RWKV6's O(1) state), the cache's contents, the
+``repro_torch.models.decode`` (dense, ssm, hybrid and moe families)
+against ``repro.models.decode`` on the same weights and tokens: the serve
+step's logits step by step at 1e-5 in float32 (plain, ring and int8
+caches, RWKV6's O(1) state, zamba2's Mamba states beside its shared
+block's KV cache, olmoe's banked experts), the cache's contents, the
 teacher-forced twin of ``tests/test_decode_consistency.py`` at its 2e-2,
 the slot surgery, the traps ``ROADMAP.md`` C.7 and C.8 pin, the sliced
 step bit for bit against the fused one, and the analytic FLOPs against
@@ -80,7 +81,9 @@ CASES = {"qwen2-0.5b": ("qwen2-0.5b", "", 12, {}, F32),
          "qwen2 ring int8": ("qwen2-0.5b", "int8", 14,
                              dict(local_global=True, sliding_window=8,
                                   num_layers=4), F32),
-         "rwkv6-7b": ("rwkv6-7b", "", 12, {}, F32)}
+         "rwkv6-7b": ("rwkv6-7b", "", 12, {}, F32),
+         "zamba2-7b": ("zamba2-7b", "", 12, {}, F32),
+         "olmoe-1b-7b": ("olmoe-1b-7b", "", 12, {}, F32)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -112,11 +115,15 @@ def test_serve_step_matches_reference(case):
             _close(leaf, want[path], tol)
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma2-27b", "rwkv6-7b"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma2-27b", "rwkv6-7b",
+                                  "zamba2-7b", "olmoe-1b-7b"])
 def test_decode_matches_forward(name):
     """Port twin of tests/test_decode_consistency.py: teacher-forced decode
-    reproduces the port's own forward at every position within 2e-2."""
-    cfg, _, prm, _ = _both(name)
+    reproduces the port's own forward at every position within 2e-2.  MoE at
+    capacity factor 8.0, as there: the full-sequence forward may drop
+    tokens at a tight capacity, per-token decode never does."""
+    over = dict(moe_capacity_factor=8.0) if name == "olmoe-1b-7b" else {}
+    cfg, _, prm, _ = _both(name, **over)
     b, s = 2, 24 if cfg.local_global else 12
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)))
@@ -146,23 +153,31 @@ def test_int8_kv_cache_close_to_forward():
     assert max(errs) < 0.35, f"int8 cache divergence {max(errs):.3f}"
 
 
+@pytest.mark.parametrize("max_len", [8, 40])
 @pytest.mark.parametrize("name,kv", [("qwen2-0.5b", ""), ("qwen2-0.5b", "int8"),
-                                     ("gemma2-27b", ""), ("rwkv6-7b", "")])
-def test_cache_layout_and_stats_match_reference(name, kv):
-    """RWKV6's cache has no length axis: ``cache_max_len`` reads the wkv
-    state's ``head_dim``, in the reference and in the port."""
+                                     ("gemma2-27b", ""), ("rwkv6-7b", ""),
+                                     ("zamba2-7b", ""), ("olmoe-1b-7b", "")])
+def test_cache_layout_and_stats_match_reference(name, kv, max_len):
+    """``cache_max_len`` is the largest ``shape[-2]`` of a leaf with four
+    axes or more, in the reference and in the port.  RWKV6's cache has no
+    length axis: it reads the wkv state's ``head_dim``.  zamba2's also reads
+    the Mamba ``h`` leaf's ``ssm_state`` (16 reduced, 64 at full width), so
+    it is ``max(max_len, ssm_state)``: 16 for a cache of 8."""
     cfg, rcfg, prm, rprm = _both(name, kv)
-    assert D.cache_shapes(cfg, 3, 40) == RD.cache_shapes(rcfg, 3, 40)
+    assert D.cache_shapes(cfg, 3, max_len) == RD.cache_shapes(rcfg, 3, max_len)
     assert D.cache_batch_axes(cfg) == RD.cache_batch_axes(rcfg)
-    cache, rcache = D.init_cache(cfg, prm, 3, 40), RD.init_cache(rcfg, rprm, 3, 40)
+    cache = D.init_cache(cfg, prm, 3, max_len)
+    rcache = RD.init_cache(rcfg, rprm, 3, max_len)
     assert D.step_stats(cfg, cache) == RD.step_stats(rcfg, rcache)
+    want = {"ssm": cfg.head_dim, "hybrid": max(max_len, cfg.ssm_state)}
     assert D.cache_max_len(cfg, cache) == RD.cache_max_len(rcfg, rcache) \
-        == (cfg.head_dim if cfg.family == "ssm" else 40)
+        == want.get(cfg.family, max_len)
     assert all(not leaf.any() for _, leaf in _leaves(cache))
 
 
 @pytest.mark.parametrize("name,kv", [("qwen2-0.5b", ""), ("qwen2-0.5b", "int8"),
-                                     ("gemma2-27b", ""), ("rwkv6-7b", "")])
+                                     ("gemma2-27b", ""), ("rwkv6-7b", ""),
+                                     ("zamba2-7b", ""), ("olmoe-1b-7b", "")])
 @pytest.mark.parametrize("form", ["fused", "per-group list"])
 def test_cache_slot_reset_and_corrupt(name, kv, form):
     """Port twin of tests/test_serve_faults.py's slot surgery, on the fused
@@ -248,7 +263,8 @@ def test_ring_slots_use_floor_mod():
 
 
 @pytest.mark.parametrize("name,kv", [("qwen2-0.5b", ""), ("gemma2-27b", ""),
-                                     ("qwen2-0.5b", "int8"), ("rwkv6-7b", "")])
+                                     ("qwen2-0.5b", "int8"), ("rwkv6-7b", ""),
+                                     ("zamba2-7b", ""), ("olmoe-1b-7b", "")])
 def test_profiled_step_equals_fused(name, kv):
     """The sliced step gives the fused step's logits and cache bit for bit,
     through a slot corruption and quarantine on both forms."""
@@ -278,10 +294,11 @@ def test_profiled_step_equals_fused(name, kv):
 
 
 def test_profile_ops_match_reference():
-    for name in ("qwen2-0.5b", "gemma2-27b", "starcoder2-7b", "rwkv6-7b"):
+    for name in ("qwen2-0.5b", "gemma2-27b", "starcoder2-7b", "rwkv6-7b",
+                 "olmoe-1b-7b", "zamba2-7b"):
         assert D.profile_ops(get_config(name).reduced()) \
             == RD.profile_ops(ref_config(name).reduced())
-    for name in ("olmoe-1b-7b", "zamba2-7b"):
+    for name in ("whisper-large-v3", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
             D.profile_ops(get_config(name).reduced())
 
@@ -289,7 +306,10 @@ def test_profile_ops_match_reference():
 @pytest.mark.parametrize("name,cache_len", [("qwen2-0.5b", 32),
                                             ("starcoder2-7b", 32),
                                             ("gemma2-27b", 16),
-                                            ("rwkv6-7b", 32)])
+                                            ("rwkv6-7b", 32),
+                                            ("zamba2-7b", 32),
+                                            ("olmoe-1b-7b", 32),
+                                            ("granite-moe-1b-a400m", 32)])
 def test_analytic_costs_and_flop_counter(name, cache_len):
     """The analytic cost model equals the reference's, and its summed
     dot-FLOPs agree with FlopCounterMode over the port's serve step within
@@ -308,6 +328,6 @@ def test_analytic_costs_and_flop_counter(name, cache_len):
 
 
 def test_other_families_are_refused():
-    for name in ("olmoe-1b-7b", "whisper-large-v3"):
+    for name in ("whisper-large-v3", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
             D.cache_shapes(get_config(name).reduced(), 2, 8)

@@ -24,6 +24,7 @@ import repro_torch.models.params, repro_torch.models.mlp
 import repro_torch.models.attention, repro_torch.models.transformer
 import repro_torch.models.decode, repro_torch.configs
 import repro_torch.models.ssm_ops, repro_torch.models.rwkv
+import repro_torch.models.mamba, repro_torch.models.moe
 import repro_torch.obs, repro_torch.obs.metrics, repro_torch.obs.spans
 import repro_torch.obs.traffic, repro_torch.obs.modelprof
 import repro_torch.launch.faults, repro_torch.launch.resilience

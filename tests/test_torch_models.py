@@ -294,17 +294,25 @@ def test_chunked_attention_bf16_accumulates_in_f32():
 # -- forward, loss --------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ["olmoe-1b-7b", "granite-moe-1b-a400m",
+                                          "zamba2-7b"])
 def test_forward_and_loss_match_reference(name):
-    """At 1e-5; gemma2 at 2e-4, where both packages' logits sit ~5e-5 from
-    a float64 evaluation (the x8 embedding scale and both softcaps)."""
-    tol = dict(rtol=2e-4, atol=2e-4) if name.startswith("gemma") else F32
+    """At 1e-5; gemma2 and zamba2 at 2e-4, where both packages' logits sit
+    ~5e-5 (gemma2: the x8 embedding scale and both softcaps) and 7e-5-8e-5
+    (zamba2: Mamba layers whose outputs reach ~1e6 at the reduced config)
+    from a float64 evaluation.  The MoE auxiliary losses, summed over
+    groups, are the reference's, and so are ``loss_fn``'s MoE terms."""
+    tol = dict(rtol=2e-4, atol=2e-4) \
+        if name.startswith(("gemma", "zamba")) else F32
     cfg, rcfg, prm, rprm = _both(name)
     s = 24 if cfg.local_global else 12        # past gemma2's window of 16
     tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, s))
     logits, aux = T.forward(cfg, prm, torch.from_numpy(tokens))
-    rlogits, _ = RT.forward(rcfg, rprm, jnp.asarray(tokens))
-    assert aux == {} and logits.dtype == torch.float32
+    rlogits, raux = RT.forward(rcfg, rprm, jnp.asarray(tokens))
+    assert sorted(aux) == sorted(raux) and logits.dtype == torch.float32
+    assert bool(aux) == (cfg.family == "moe")
+    for k in aux:
+        _close(aux[k], raux[k], tol)
     _close(logits, rlogits, tol)
     mask = (np.arange(s) % 5 != 0)[None].repeat(2, 0).astype(np.int32)
     for batch in ({"tokens": tokens}, {"tokens": tokens, "mask": mask}):
@@ -314,6 +322,8 @@ def test_forward_and_loss_match_reference(name):
                                                  for k, v in batch.items()})
         assert sorted(metrics) == sorted(rmetrics)
         _close(loss, rloss, tol)
+        for k in metrics:
+            _close(metrics[k], rmetrics[k], tol)
 
 
 def test_chunked_ce_over_several_chunks():
@@ -327,8 +337,7 @@ def test_chunked_ce_over_several_chunks():
                F32)
 
 
-@pytest.mark.parametrize("name", ["olmoe-1b-7b", "zamba2-7b",
-                                  "whisper-large-v3", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("name", ["whisper-large-v3", "llama-3.2-vision-11b"])
 def test_other_families_are_refused(name):
     cfg = get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):

@@ -7,8 +7,8 @@ surgery twin is in ``tests/test_torch_decode.py``, and RWKV6's engine
 twins in ``tests/test_torch_rwkv.py``), the layer-profiler join of
 ``tests/test_modelprof.py``, and the two CLIs writing byte-identical
 ``--stable`` span streams and layer records under one seed, plain, under a
-fault plan, and for RWKV6.  The JAX-free modules the port copies
-verbatim are held to be the reference's files.
+fault plan, and for RWKV6, zamba2 and olmoe.  The JAX-free modules the
+port copies verbatim are held to be the reference's files.
 """
 import pathlib
 import re
@@ -644,7 +644,8 @@ def _drive_profiled(arch="qwen2-0.5b", requests=3):
     return cfg, eng, tr, prof
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-27b", "zamba2-7b",
+                                  "olmoe-1b-7b"])
 def test_layer_join_closes(arch):
     cfg, eng, tr, prof = _drive_profiled(arch)
     assert MPF.validate(prof.records, cfg=cfg, engine_steps=eng.steps) == []
@@ -797,11 +798,16 @@ def test_cli_streams_byte_identical_to_reference(tmp_path, monkeypatch, capsys,
         assert b"retry" in (tmp_path / "port.spans").read_bytes()
 
 
+@pytest.mark.parametrize("arch,op", [("rwkv6-7b", "time_mix"),
+                                     ("zamba2-7b", "scan"),
+                                     ("olmoe-1b-7b", "moe")])
 def test_rwkv_cli_streams_byte_identical_to_reference(tmp_path, monkeypatch,
-                                                      capsys):
+                                                      capsys, arch, op):
     """``--arch rwkv6-7b`` (the ssm family, its time_mix / channel_mix
-    layer records): the port's ``--stable`` streams are the reference's."""
-    args = ["--arch", "rwkv6-7b", "--slots", "2", "--requests", "6", "--gen",
+    layer records), ``zamba2-7b`` (hybrid: scan / attn / mlp) and
+    ``olmoe-1b-7b`` (moe: attn / moe): the port's ``--stable`` streams are
+    the reference's."""
+    args = ["--arch", arch, "--slots", "2", "--requests", "6", "--gen",
             "6", "--prompt-len", "4", "--arrival-mean", "0.5", "--stable"]
     _reference_cli(monkeypatch, args, tmp_path / "ref", warm=True)
     capsys.readouterr()
@@ -809,11 +815,11 @@ def test_rwkv_cli_streams_byte_identical_to_reference(tmp_path, monkeypatch,
              "--spans-out", str(tmp_path / "port.spans"),
              "--profile-layers", str(tmp_path / "port.layers")])
     out = capsys.readouterr().out
-    assert out.rstrip().endswith("OK") and "rwkv6-7b: 6/6 requests" in out
+    assert out.rstrip().endswith("OK") and f"{arch}: 6/6 requests" in out
     for kind in ("spans", "layers"):
         mine = (tmp_path / f"port.{kind}").read_bytes()
         assert mine and mine == (tmp_path / f"ref.{kind}").read_bytes(), kind
-    assert b'"time_mix"' in (tmp_path / "port.layers").read_bytes()
+    assert f'"{op}"'.encode() in (tmp_path / "port.layers").read_bytes()
 
 
 @pytest.mark.parametrize("path", ["obs/metrics.py", "obs/spans.py",
