@@ -53,22 +53,27 @@ toolkit.  Phases:
 8. the decode and serving path (``repro_torch.models``,
    ``repro_torch.launch.serve``), for each architecture of
    ``SERVE_ARCHS`` at full width: qwen2-0.5b (dense), rwkv6-7b (ssm,
-   RWKV6), zamba2-7b (hybrid: Mamba2 and one shared attention block) and
-   olmoe-1b-7b (moe, banked expert dispatch).  Its weights are drawn once
+   RWKV6; 8 of its 32 layers), zamba2-7b (hybrid: Mamba2 and one shared
+   attention block; 9 of its 27 groups), olmoe-1b-7b (moe, banked expert
+   dispatch; 4 of its 16 layers), whisper-large-v3 (audio: the encoder over 1500 frames, decoder
+   layers with self and cross attention) and llama-3.2-vision-11b (vlm:
+   groups of 4 self layers and a gated cross layer over 1601 patches); each
+   depth cut is listed as ``reduced``.  Its weights are drawn once
    from a numpy seed (the reference's draw) and streamed leaf by leaf to the
    card in float32 (``params.stream_params``; the draw's seconds are
    printed): ``decode vs forward`` feeds 16 tokens of 2 sequences
    teacher-forced through ``serve_step`` in float32 without TF32 and holds
    every position's logits against the port's ``forward`` on the card at
    2e-2 (``tests/test_decode_consistency.py``; olmoe at its capacity factor
-   8.0, the override printed; olmoe's gated at its first 4 of 16 layers,
-   where float32 rounding, amplified layer by layer by the seeded
-   full-width weights, stays under it, with every layer's distance and the
-   forward's spread under a one-ulp change of its input printed beside
-   it), and the first 4 steps against the same steps
-   on the CPU at 2e-2, at full width and every layer for qwen2-0.5b, the
-   first groups of the others (2 of rwkv6-7b's 32, 1 of zamba2-7b's 27 with
-   its shared block, 2 of olmoe-1b-7b's 16; listed as ``reduced``);
+   8.0, the override printed; whisper and the VLM with frames or patches
+   drawn from numpy, projected into the cross caches by ``init_cache``, the
+   VLM's cross gates set to seeded non-zero values, printed; the forward's
+   spread under a one-ulp change of its input printed beside it), and the
+   first 4 steps against the same steps on the CPU at 2e-2, at full width
+   and every layer for qwen2-0.5b, the first groups of the others (2 of
+   rwkv6-7b's, 1 of zamba2-7b's with its shared block, 2 of
+   olmoe-1b-7b's, 2 of whisper's 32 with 2 of its 32 encoder layers, 1 of
+   the VLM's 8; listed as ``reduced``);
    ``serve`` casts the weights to bf16 in place (``params.cast_params``)
    and runs ``Engine`` (4 slots, 8 requests of prompt 8 and gen 16 on a
    seeded arrival trace) with a ``MetricsRegistry`` and a ``SpanTracer``:
@@ -78,11 +83,16 @@ toolkit.  Phases:
    step (RWKV6's wkv state and zamba2's Mamba state turn float32 there;
    both must equal the reference's layout), memory and the card; the
    same requests with a ``LayerProfiler`` give the time of every operator
-   of ``decode.profile_ops`` and a join that closes; ``serve chaos`` runs
-   the reduced bf16 config twice under one seeded ``FaultPlan`` with
-   resilience on: no request is lost and the two ``--stable`` span streams
-   are byte-identical.  This path launches none of the four kernels (the
-   reference's serving path runs no Pallas kernel).
+   of ``decode.profile_ops`` and a join that closes (not for whisper and the
+   VLM, which the reference's layer profiler refuses); for whisper and the
+   VLM, whose engine serves zeroed cross caches as the reference's does,
+   the line's ``modality`` entry times ``init_cache`` filling them from a
+   modality at 4 slots in bf16 (the wall and the device time); ``serve
+   chaos`` runs the reduced bf16 config twice under one seeded
+   ``FaultPlan`` with resilience on: no request is lost and the two
+   ``--stable`` span streams are byte-identical.  This path launches none
+   of the four kernels (the reference's serving path runs no Pallas
+   kernel).
 
 Prints one JSON ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a card, outside a checkout of
@@ -797,23 +807,31 @@ CARD = "cuda"
 SERVE_SEED = 0
 DECODE_TOL = 2e-2            # tests/test_decode_consistency.py:60
 
-# the served architectures at full width, each with the depth in groups of
-# its card vs CPU check and of its gated decode vs forward check (None:
-# every group).  The float32 weights of the 7B models, 18-30 GB, would not
-# fit a host of unknown size, so the card vs CPU checks run their first
-# groups: ~2.4 GB of host copies for zamba2-7b's, its shared block
-# included, ~4.6 GB for olmoe-1b-7b's.  olmoe-1b-7b's seeded full-width
-# model amplifies float32 rounding layer by layer (its blocks are drawn at
-# std 1/sqrt(16), ROADMAP.md C.6, so its attention scores reach ~100): its
-# forward itself moves by ~0.26 on an H100 under a one-ulp change of its
-# input (the row's ``forward_spread_one_ulp_input``), more than the 2e-2 the
-# check holds, so its decode vs forward is gated at its first 4 layers and
-# printed at all 16
-SERVE_ARCHS = (("qwen2-0.5b", None, None), ("rwkv6-7b", 2, None),
-               ("zamba2-7b", 1, None), ("olmoe-1b-7b", 2, 4))
+# the served architectures, each (arch, layers, cpu_groups): full width, at
+# ``layers`` (None: full depth), with the depth in groups of its card vs CPU
+# check (None: every group).  rwkv6-7b, zamba2-7b and olmoe-1b-7b run 8 of
+# 32 layers, 9 of 27 groups and 4 of 16 layers, to pay for the draws of
+# whisper-large-v3 and llama-3.2-vision-11b within the script's time (their
+# full-depth numbers of PR 16-17 are in PERF_HISTORY.md).  At each depth the
+# forward's spread under a one-ulp change of its input stays under the
+# 2e-2 decode vs forward holds (at 16 layers olmoe-1b-7b's seeded model,
+# blocks drawn at std 1/sqrt(16), ROADMAP.md C.6, moved by ~0.26), so every
+# layer is held.  The float32 weights of the 7B-11B models, 18-39 GB,
+# would not fit a host of unknown size, so the card vs CPU checks run their
+# first groups: ~2.4 GB of host copies for zamba2-7b's, its shared block
+# included, ~4.6 GB for olmoe-1b-7b's, ~1.8 GB for whisper's 2 decoder
+# groups (and 2 encoder layers, ``CPU_ENCODER_LAYERS``), ~8.6 GB for the
+# VLM's first group of 4 self layers and its cross layer
+SERVE_ARCHS = (("qwen2-0.5b", None, None), ("rwkv6-7b", 8, 2),
+               ("zamba2-7b", 27, 1), ("olmoe-1b-7b", 4, 2),
+               ("whisper-large-v3", None, 2), ("llama-3.2-vision-11b", None, 1))
+CPU_ENCODER_LAYERS = 2
 # tests/test_decode_consistency.py:27-31: the full-sequence forward may drop
 # tokens at a tight capacity while per-token decode never does
 DECODE_OVERRIDES = {"moe": {"moe_capacity_factor": 8.0}}
+# ROADMAP.md C.15: the VLM's cross gates are drawn as zeros, and tanh(0) = 0
+# hides its whole cross layer; decode vs forward sets these, one a group
+GATE_SEED = 15
 
 
 class ServePath:
@@ -822,8 +840,8 @@ class ServePath:
     streamed leaf by leaf to the card in float32; the serve phase casts them
     to the model dtype in place."""
 
-    def __init__(self, arch: str, cpu_groups: Optional[int],
-                 decode_groups: Optional[int] = None):
+    def __init__(self, arch: str, layers: Optional[int],
+                 cpu_groups: Optional[int]):
         from repro_torch.launch import faults, resilience, serve
         from repro_torch.models import decode, get_config, params, transformer
         from repro_torch.obs import modelprof, spans, traffic
@@ -832,12 +850,16 @@ class ServePath:
         self.decode, self.params, self.transformer = decode, params, transformer
         self.modelprof, self.spans, self.traffic = modelprof, spans, traffic
         self.MetricsRegistry, self.SpanTracer = MetricsRegistry, SpanTracer
+        import dataclasses
         self.arch = arch
-        self.cfg = get_config(arch)
+        full = get_config(arch)
+        self.cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+        self.depth_cut = (
+            [f"depth: {self.cfg.num_layers} of {full.num_layers} layers "
+             f"(time budget; full width)"] if layers else [])
         self.reduced = get_config(arch).reduced()
         n = self.cfg.num_groups
         self.cpu_groups = min(cpu_groups or n, n)
-        self.decode_groups = min(decode_groups or n, n)
         t0 = time.perf_counter()
         self.prm = params.stream_params(self.cfg, SERVE_SEED, CARD, "float32")
         torch.cuda.synchronize()
@@ -848,11 +870,28 @@ class ServePath:
               f"card in float32)", flush=True)
 
 
-def _first_groups(tree, n: int):
-    """The tree with its stacked blocks cut to the first ``n`` groups."""
+def _first(tree, key: str, n: int):
+    """The tree with its stacked ``key`` subtree cut to the first ``n``."""
     cut = lambda t: ({k: cut(v) for k, v in t.items()}       # noqa: E731
                      if isinstance(t, dict) else t[:n])
-    return {k: cut(v) if k == "blocks" else v for k, v in tree.items()}
+    return {k: cut(v) if k == key else v for k, v in tree.items()}
+
+
+def _modality(cfg, batch: int, seed: int):
+    """Frame (audio: (B, encoder_seq, D)) or patch (vlm: (B, num_patches,
+    D)) embeddings drawn from numpy, float32 on the host; None for the
+    families without one."""
+    if cfg.family not in ("audio", "vlm"):
+        return None
+    n = cfg.encoder_seq if cfg.family == "audio" else cfg.num_patches
+    a = np.random.default_rng(seed).normal(size=(batch, n, cfg.d_model))
+    return torch.from_numpy(a.astype(np.float32))
+
+
+def _with_gates(prm, gates):
+    """``prm`` with the VLM's cross gates replaced (no copy of the rest)."""
+    cross = dict(prm["blocks"]["cross"], **gates)
+    return dict(prm, blocks=dict(prm["blocks"], cross=cross))
 
 
 def _to(tree, dev):
@@ -862,70 +901,74 @@ def _to(tree, dev):
 
 def phase_decode_vs_forward(sp: ServePath) -> dict:
     """Teacher-forced decode against forward at full width in float32, on
-    the card, gated at the first ``decode_groups`` groups and printed at
-    every group, beside the forward's own spread under a one-ulp change of
-    its input (each embedding row scaled by 1 + 2**-23); and the first steps
-    of the first ``cpu_groups`` groups, at full width, on the card against
-    the same on the CPU."""
+    the card, at every layer, beside the forward's own spread under a
+    one-ulp change of its input (each embedding row scaled by 1 + 2**-23);
+    and the first steps
+    of the first ``cpu_groups`` groups (and ``CPU_ENCODER_LAYERS`` of
+    whisper's encoder), at full width, on the card against the same on the
+    CPU.  whisper and the VLM decode with frames or patches drawn from
+    numpy, which ``init_cache`` projects into the cross caches (through the
+    encoder, for whisper), and the VLM's cross gates set to seeded non-zero
+    values on both sides (C.15; printed under ``overrides``)."""
     import dataclasses
     from repro_torch.device import full_f32
-    overrides = DECODE_OVERRIDES.get(sp.cfg.family, {})
+    overrides = dict(DECODE_OVERRIDES.get(sp.cfg.family, {}))
     cfg = dataclasses.replace(sp.cfg, dtype="float32", **overrides)
     b, s, cpu_steps = 2, 16, 4
     tokens = torch.from_numpy(np.random.default_rng(16).integers(
         0, cfg.vocab_size, (b, s)))
+    modality = _modality(cfg, b, 17)
+    prm = sp.prm
+    if cfg.family == "vlm":
+        g = np.random.default_rng(GATE_SEED).uniform(0.5, 1.5, (2, cfg.num_groups))
+        gates = {"gate_attn": g[0], "gate_mlp": -g[1]}
+        overrides["cross_gates"] = {k: [float(x) for x in v]
+                                    for k, v in gates.items()}
+        prm = _with_gates(prm, {k: torch.from_numpy(v.astype(np.float32)).to(CARD)
+                                for k, v in gates.items()})
 
-    def decode(c, prm, toks, steps):
-        cache = sp.decode.init_cache(c, prm, b, s + 4)
+    def decode(c, prm, toks, mod, steps):
+        cache = sp.decode.init_cache(c, prm, b, s + 4, modality=mod)
         return torch.cat([sp.decode.serve_step(c, prm, cache, toks[:, i:i + 1],
                                                i)[0] for i in range(steps)],
                          dim=1).cpu()
 
     def forward(c, prm):
         with full_f32():
-            return sp.transformer.forward(c, prm, toks)[0].cpu()
+            return sp.transformer.forward(c, prm, toks, modality=mod)[0].cpu()
 
     toks = tokens.to(CARD)
-    card = decode(cfg, sp.prm, toks, s)
-    full = forward(cfg, sp.prm)
-    ulp = forward(cfg, dict(sp.prm, embed=sp.prm["embed"] * (1 + 2 ** -23)))
+    mod = None if modality is None else modality.to(CARD)
+    card = decode(cfg, prm, toks, mod, s)
+    full = forward(cfg, prm)
+    ulp = forward(cfg, dict(prm, embed=prm["embed"] * (1 + 2 ** -23)))
     spread = float((ulp - full).abs().max())
     del ulp
-    gated, gated_card, gated_full = cfg, card, full
-    if sp.decode_groups < cfg.num_groups:
-        gated = dataclasses.replace(
-            cfg, num_layers=sp.decode_groups * cfg.group_size)
-        gated_prm = _first_groups(sp.prm, sp.decode_groups)
-        gated_card = decode(gated, gated_prm, toks, s)
-        gated_full = forward(gated, gated_prm)
     cut = dataclasses.replace(cfg, num_layers=sp.cpu_groups * cfg.group_size)
-    cut_prm = _first_groups(sp.prm, cut.num_groups)
-    cut_card = decode(cut, cut_prm, toks, cpu_steps)
-    cut_cpu = decode(cut, _to(cut_prm, "cpu"), tokens, cpu_steps)
+    cut_prm = _first(prm, "blocks", cut.num_groups)
+    if cfg.family == "audio":
+        cut = dataclasses.replace(cut, encoder_layers=CPU_ENCODER_LAYERS)
+        cut_prm = _first(cut_prm, "encoder", CPU_ENCODER_LAYERS)
+    cut_card = decode(cut, cut_prm, toks, mod, cpu_steps)
+    cut_cpu = decode(cut, _to(cut_prm, "cpu"), tokens, modality, cpu_steps)
     torch.cuda.empty_cache()
     for label, got in (("decode", card), ("forward", full),
-                       ("decode, gated", gated_card), ("forward, gated", gated_full),
                        ("card, cut", cut_card), ("cpu, cut", cut_cpu)):
         _check(got.shape[0] == b and got.shape[2] == cfg.vocab_size
                and bool(torch.isfinite(got).all()), f"{label}: shape or finite")
-    per_pos = (gated_card - gated_full).abs().amax(dim=(0, 2))
-    per_pos_all = (card - full).abs().amax(dim=(0, 2))
+    per_pos = (card - full).abs().amax(dim=(0, 2))
     vs_cpu = float((cut_card - cut_cpu).abs().max())
-    reduced = []
-    if gated.num_layers < cfg.num_layers:
-        reduced.append(f"decode vs forward gated at {gated.num_layers} of "
-                       f"{cfg.num_layers} layers (float32 conditioning; every "
-                       f"layer printed)")
+    reduced = list(sp.depth_cut)
     if cut.num_layers < cfg.num_layers:
+        enc = (f", {cut.encoder_layers} of {cfg.encoder_layers} encoder layers"
+               if cfg.family == "audio" else "")
         reduced.append(f"card vs cpu: {sp.cpu_groups} of {cfg.num_groups} "
-                       f"groups, {cut.num_layers} of {cfg.num_layers} layers "
-                       f"(host memory)")
+                       f"groups, {cut.num_layers} of {cfg.num_layers} layers"
+                       f"{enc} (host memory)")
     row = {"arch": sp.arch, "batch": b, "tokens": s, "dtype": "float32",
+           "modality": None if modality is None else list(modality.shape),
            "max_abs_decode_vs_forward": float(per_pos.max()),
            "per_position": [float(x) for x in per_pos],
-           "decode_layers": gated.num_layers,
-           "max_abs_decode_vs_forward_all_layers": float(per_pos_all.max()),
-           "per_position_all_layers": [float(x) for x in per_pos_all],
            "forward_spread_one_ulp_input": spread,
            "max_abs_card_vs_cpu_first_steps": vs_cpu, "cpu_steps": cpu_steps,
            "cpu_groups": sp.cpu_groups, "cpu_layers": cut.num_layers,
@@ -1040,19 +1083,66 @@ def phase_serve(sp: ServePath) -> dict:
     device_ms_step = sum(device.values()) / eng.steps
     mean_step_ms = statistics.fmean(step_us) / 1e3
 
-    # 4. the layer profiler: per-operator walls, and the join
-    tracer, layers = sp.SpanTracer(), sp.modelprof.LayerProfiler()
-    eng = engine(spans=tracer, layers=layers)
-    run(eng)
-    finished(eng, "layer-profiled run")
-    mpf = sp.modelprof
-    problems = (mpf.validate(layers.records, cfg=cfg, engine_steps=eng.steps)
-                + mpf.join_mismatches(layers.records, tracer.events, cfg=cfg))
-    _check(problems == [], f"layer records: {problems[:3]}")
-    by_op = {}
-    for r in layers.records:
-        by_op.setdefault(r.op, []).append(r.dur_us)
-    ops = dict.fromkeys(op for op, _ in sp.decode.profile_ops(cfg))
+    # 4. the layer profiler: per-operator walls, and the join; the reference
+    # slices neither audio nor vlm (its PROFILED_FAMILIES)
+    reduced = list(sp.depth_cut)
+    op_mean_us, layer_steps = None, None
+    if cfg.family in sp.decode.PROFILED_FAMILIES:
+        tracer, layers = sp.SpanTracer(), sp.modelprof.LayerProfiler()
+        eng = engine(spans=tracer, layers=layers)
+        run(eng)
+        finished(eng, "layer-profiled run")
+        mpf = sp.modelprof
+        problems = (mpf.validate(layers.records, cfg=cfg, engine_steps=eng.steps)
+                    + mpf.join_mismatches(layers.records, tracer.events, cfg=cfg))
+        _check(problems == [], f"layer records: {problems[:3]}")
+        by_op = {}
+        for r in layers.records:
+            by_op.setdefault(r.op, []).append(r.dur_us)
+        ops = dict.fromkeys(op for op, _ in sp.decode.profile_ops(cfg))
+        op_mean_us = {op: statistics.fmean(by_op[op]) for op in ops}
+        layer_steps = eng.steps
+    else:
+        reduced.append(f"no layer-profiled run: the reference's "
+                       f"PROFILED_FAMILIES leave out {cfg.family!r}")
+
+    # 5. the cross caches filled from a modality (bf16, 4 slots): whisper's
+    # encoder over its frames and a cross fill a layer, or the VLM's cross
+    # fill a group over its patches; the engine itself serves them zeroed
+    modality = None
+    mod = _modality(cfg, slots, 18)
+    if mod is not None:
+        mod = mod.to(CARD, getattr(torch, cfg.dtype))
+
+        def fill():
+            return sp.decode.init_cache(cfg, prm, slots, max_len, modality=mod)
+        fill()                                                  # warm
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            filled = fill()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        fill_device_ms, fill_kernels = _device_profile(fill, iters=2)
+        cross = filled["lyr"]["cross"] if cfg.family == "audio" else filled["cross"]
+        _check(all(bool(torch.isfinite(t).all()) and bool(t.any())
+                   for t in cross.values()), "cross caches: finite, filled")
+        _check(sp.decode.cache_num_bytes(filled) == layout[0],
+               "filled cache bytes differ from the reference's layout")
+        modality = {
+            "shape": list(mod.shape), "dtype": cfg.dtype, "slots": slots,
+            "wall_ms_median": statistics.median(walls) * 1e3,
+            "device_ms": fill_device_ms,
+            "device_kernels_top": {k[:60]: v for k, v in
+                                   list(fill_kernels.items())[:4]},
+            "work": (f"encoder over {cfg.encoder_seq} frames, "
+                     f"{cfg.encoder_layers} layers, and {cfg.num_groups} "
+                     f"cross fills" if cfg.family == "audio" else
+                     f"{cfg.num_groups} cross fills over "
+                     f"{cfg.num_patches} patches"),
+            "cross_bytes": sp.decode.cache_num_bytes(cross)}
+        del filled, cross, mod
     row = {
         "arch": sp.arch, "dtype": cfg.dtype, "slots": slots,
         "requests": requests, "prompt": prompt, "gen": gen, "arrival_mean": mean,
@@ -1062,16 +1152,18 @@ def phase_serve(sp: ServePath) -> dict:
         "step_wall_ms_mean": mean_step_ms,
         "step_device_ms": device_ms_step,
         "device_busy_share": device_ms_step / mean_step_ms,
-        "device_events_per_step": sum(counts.values()) / eng.steps,
-        "device_kernels_top": {k[:60]: v / eng.steps for k, v in sorted(
+        "device_events_per_step": sum(counts.values()) / steps,
+        "device_kernels_top": {k[:60]: v / steps for k, v in sorted(
             device.items(), key=lambda kv: -kv[1])[:6]},
         "cache_bytes_init": cache_bytes[0],
         "cache_bytes_after_first_step": cache_bytes[-1],
         "param_bytes": param_bytes, "params": sp.n_params, "draw_s": sp.draw_s,
         "memory_allocated_at_start": at_start,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "op_mean_us": {op: statistics.fmean(by_op[op]) for op in ops},
-        "layer_steps": eng.steps,
+        "op_mean_us": op_mean_us,
+        "modality": modality,
+        "layers": cfg.num_layers, "reduced": reduced,
+        "layer_steps": layer_steps,
         "card": _card_name_and_limit(),
     }
     print(json.dumps({"serve": row}))
@@ -1203,9 +1295,9 @@ def main() -> int:
                 name, src, replaces, cases, launches, full_f32)):
             kernels.append(results[f"{name} times"])
     run("host cost", lambda: phase_host_cost(ops, checks))
-    for arch, cpu_groups, decode_groups in SERVE_ARCHS:
+    for arch, layers, cpu_groups in SERVE_ARCHS:
         if not run(f"{arch} weights",
-                   lambda: ServePath(arch, cpu_groups, decode_groups)):
+                   lambda: ServePath(arch, layers, cpu_groups)):
             continue
         sp = results.pop(f"{arch} weights")
         run(f"{arch} decode vs forward", lambda: phase_decode_vs_forward(sp))

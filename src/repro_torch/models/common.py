@@ -9,6 +9,7 @@ reference's sharding rules wait for the mesh tooling (``ROADMAP.md`` item
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -101,6 +102,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     sin = sin[:, None].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoid_pos(seq: int, dim: int, offset: int = 0,
+                 device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (S, D), float32: sin in the
+    even columns, cos in the odd ones."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    div = torch.exp(-math.log(10000.0)
+                    * torch.arange(0, dim, 2, dtype=torch.float32,
+                                   device=device) / dim)
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ---------------------------------------------------------------------------

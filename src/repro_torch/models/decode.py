@@ -1,5 +1,4 @@
-"""Decode path, dense, moe, ssm and hybrid families: cache construction +
-single-token serve step.
+"""Decode path, every family: cache construction + single-token serve step.
 
 The port of ``repro.models.decode``.  The cache keeps the reference's
 layout, stacked over groups: dense and moe ``{'lyr': {'k','v'}}`` of
@@ -9,7 +8,14 @@ int8 cache; ssm (RWKV6) ``{'lyr': {'wkv', 'shift_tm', 'shift_cm'}}`` of
 (G, B, H, dh, dh) and (G, B, 1, D), no length axis; hybrid (zamba2)
 ``{'mamba': {'h', 'conv'}, 'attn': {'k','v'}}``, the Mamba states of
 (G, n_mamba, B, nh, state, hd) and (G, n_mamba, B, K-1, CH) behind two
-stacked axes, and the shared block's KV cache, one per group.  Where the
+stacked axes, and the shared block's KV cache, one per group; vlm
+``{'self': {'k','v'}, 'cross': {'k','v'}}``, the four self layers' caches
+stacked behind the group axis (G, 4, B, Hkv, L, dh) and the cross K/V over
+the patches (G, B, Hkv, P, dh); audio ``{'lyr': {'self', 'cross'}}``, the
+decoder's self cache and the cross K/V over the encoder's frames
+(G, B, Hkv, enc_seq, dh).  ``init_cache`` fills the cross K/V from a
+``modality`` (for audio, after running the encoder) in the model dtype,
+never int8; without one they stay zero, as the engine's are.  Where the
 reference returns new caches, the port writes the cache in place and
 returns it: :func:`serve_step`, the slot surgery and the per-group list
 form of :class:`ProfiledServeStep` (views of one stacked cache) all mutate
@@ -18,15 +24,16 @@ wkv state and Mamba's ``h`` are created in the model dtype and the
 reference's step returns them in float32, so from the first step on the
 port holds them in float32 too, a new leaf bound in place of the old one
 (``ROADMAP.md`` C.13, C.14).  The moe step skips the router's auxiliary
-losses, which the reference's jitted step computes and discards.  audio and
-vlm raise ``NotImplementedError`` naming their ``ROADMAP.md`` item;
+losses, which the reference's jitted step computes and discards.  The
+layer profiler's sliced step covers the dense, moe, ssm and hybrid
+families, and refuses audio and vlm as the reference does;
 ``cache_specs`` waits for the dry-run (item 20).
 """
 from __future__ import annotations
 
 import functools
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,10 +42,10 @@ from . import attention as A
 from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
-from .common import embed, lm_logits, norm
+from .common import embed, lm_logits, norm, sinusoid_pos
 from .config import ModelConfig
 from .mlp import mlp_block
-from .transformer import group_params, require_ported
+from .transformer import encode_audio, group_params
 
 
 def _kv_shape(cfg: ModelConfig, batch: int, max_len: int):
@@ -72,8 +79,16 @@ def _stack_shapes(n: int, tree):
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Any:
-    require_ported(cfg)
-    if cfg.family == "ssm":
+    if cfg.family == "vlm":
+        n_self = cfg.cross_attn_every - 1
+        cross_kv = (batch, cfg.num_kv_heads, cfg.num_patches, cfg.head_dim)
+        per = {"self": _stack_shapes(n_self, _kv_entry(cfg, batch, max_len)),
+               "cross": {"k": cross_kv, "v": cross_kv}}
+    elif cfg.family == "audio":
+        enc_kv = (batch, cfg.num_kv_heads, cfg.encoder_seq, cfg.head_dim)
+        per = {"lyr": {"self": _kv_entry(cfg, batch, max_len),
+                       "cross": {"k": enc_kv, "v": enc_kv}}}
+    elif cfg.family == "ssm":
         per = {"lyr": R.rwkv_cache_shape(cfg, batch)}
     elif cfg.family == "hybrid":
         n_mamba = cfg.hybrid_attn_every - 1
@@ -90,7 +105,8 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Any:
 
 def _cache_leaf_dtype(cfg: ModelConfig, path_key: str, shape, parent):
     """int8 only for self-attn k/v whose sibling scale entry exists; their
-    scales in float32; everything else in the model dtype."""
+    scales in float32; everything else in the model dtype (the cross K/V
+    too: ``_cross_decode`` reads them raw, C.18)."""
     if cfg.kv_cache_dtype == "int8":
         if path_key in ("k", "v") and f"{path_key}_scale" in parent:
             return torch.int8
@@ -108,13 +124,54 @@ def _map_cache(cfg: ModelConfig, tree, fn):
     return walk(tree)
 
 
-def init_cache(cfg: ModelConfig, params, batch: int, max_len: int):
-    """An empty (zeroed) cache on the device that holds ``params``."""
+def init_cache(cfg: ModelConfig, params, batch: int, max_len: int,
+               modality: Optional[torch.Tensor] = None):
+    """A zeroed cache on the device that holds ``params``; with a
+    ``modality`` (vlm: patch embeddings (B, P, D); audio: frame embeddings
+    (B, enc_seq, D), run through the encoder first) each group's cross K/V
+    are its projections of it, stored in the model dtype."""
     dev = params["embed"].device
-    return _map_cache(
+    cache = _map_cache(
         cfg, cache_shapes(cfg, batch, max_len),
         lambda key, s, par: torch.zeros(
             s, dtype=_cache_leaf_dtype(cfg, key, s, par), device=dev))
+    if modality is None or cfg.family not in ("vlm", "audio"):
+        return cache
+    with full_f32():
+        if cfg.family == "audio":
+            src, cross = encode_audio(cfg, params, modality), cache["lyr"]["cross"]
+        else:
+            src, cross = modality, cache["cross"]
+        for i in range(cfg.num_groups):
+            gp = group_params(params["blocks"], i)
+            p = gp["lyr"]["cross"] if cfg.family == "audio" \
+                else gp["cross"]["attn"]
+            _, k, v = A.qkv_proj(cfg, p, src, kv_x=src)
+            cross["k"][i] = k
+            cross["v"][i] = v
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention against a precomputed cache (no causal mask)
+# ---------------------------------------------------------------------------
+
+
+def _cross_decode(cfg: ModelConfig, p, x1, kc, vc):
+    """x1 (B, 1, D) against the raw cross K/V (B, Hkv, Sk, dh): float32
+    scores, no rope, no mask; the output cast to x1's dtype before ``wo``."""
+    b = x1.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // hkv
+    q = x1 @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    qg = q.reshape(b, 1, h, dh).transpose(1, 2).reshape(b, hkv, g, 1, dh)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kc.float()) / (dh ** 0.5)
+    pgs = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", pgs, vc.float())
+    out = out.reshape(b, h, 1, dh).transpose(1, 2).reshape(b, 1, -1)
+    return out.to(x1.dtype) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +263,31 @@ def _states_to_f32(cfg: ModelConfig, cache) -> None:
 
 
 def _group_decode(cfg: ModelConfig, params, pos):
-    require_ported(cfg)
-    if cfg.family == "ssm":
+    if cfg.family == "vlm":
+        def step(x1, gp, gc):
+            for j in range(cfg.cross_attn_every - 1):
+                x1, _ = _dense_decode(cfg, group_params(gp["self"], j), x1,
+                                      group_params(gc["self"], j), pos)
+            p = gp["cross"]
+            h = norm(cfg, p["ln1"], x1)
+            a = _cross_decode(cfg, p["attn"], h, gc["cross"]["k"],
+                              gc["cross"]["v"])
+            x1 = x1 + a * torch.tanh(p["gate_attn"]).to(a.dtype)
+            h = norm(cfg, p["ln2"], x1)
+            m = mlp_block(cfg, p["mlp"], h)
+            return x1 + m * torch.tanh(p["gate_mlp"]).to(m.dtype), gc
+    elif cfg.family == "audio":
+        def step(x1, gp, gc):
+            p, c = gp["lyr"], gc["lyr"]
+            h = norm(cfg, p["ln1"], x1)
+            a, _ = A.attn_decode(cfg, p["attn"], h, c["self"], pos)
+            x1 = x1 + a
+            h = norm(cfg, p["ln2"], x1)
+            x1 = x1 + _cross_decode(cfg, p["cross"], h, c["cross"]["k"],
+                                    c["cross"]["v"])
+            h = norm(cfg, p["ln3"], x1)
+            return x1 + mlp_block(cfg, p["mlp"], h), gc
+    elif cfg.family == "ssm":
         def step(x1, gp, gc):
             x1, new = R.rwkv_decode_step(cfg, gp["lyr"], x1, gc["lyr"])
             _write(gc["lyr"], new)
@@ -248,6 +328,12 @@ def serve_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, pos
     _states_to_f32(cfg, cache)
     with full_f32():
         x1 = embed(cfg, params, tokens)
+        if cfg.family == "audio":
+            # row pos of a table of cache_max_len rows, the start clamped
+            # into it as dynamic_slice_in_dim's is (C.16)
+            row = min(max(pos, 0), cache_max_len(cfg, cache) - 1)
+            pe = sinusoid_pos(1, cfg.d_model, offset=row, device=x1.device)
+            x1 = x1 + pe[None].to(x1.dtype)
         step = _group_decode(cfg, params, pos)
         for i in range(cfg.num_groups):
             x1, _ = step(x1, group_params(params["blocks"], i),
@@ -265,12 +351,15 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 
 def cache_max_len(cfg: ModelConfig, cache) -> int:
-    """Decoder self-attention cache length (the position-table size): the
-    largest ``shape[-2]`` of a leaf with four axes or more, as in the
-    reference.  For RWKV6, which has no length axis, that is the wkv
-    state's ``head_dim``; for zamba2 it also reads the Mamba ``h`` leaf's
-    ``ssm_state`` and the conv window's K-1, so it is ``max(max_len,
-    ssm_state)``."""
+    """Decoder self-attention cache length (the position-table size), as in
+    the reference (C.17): for audio the self cache's length; otherwise the
+    largest ``shape[-2]`` of a leaf with four axes or more.  For RWKV6,
+    which has no length axis, that is the wkv state's ``head_dim``; for
+    zamba2 it also reads the Mamba ``h`` leaf's ``ssm_state`` and the conv
+    window's K-1, so it is ``max(max_len, ssm_state)``; for the VLM it reads
+    the cross K/V's patch axis, so it is ``max(max_len, num_patches)``."""
+    if cfg.family == "audio":
+        return cache["lyr"]["self"]["k"].shape[-2]
     return max((l.shape[-2] for l in _leaves(cache) if l.ndim >= 4),
                default=1)
 
@@ -379,7 +468,10 @@ def profile_ops(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
     validator and the analytic cost model share: one record per entry per
     engine step.
     """
-    require_ported(cfg)
+    if cfg.family not in PROFILED_FAMILIES:
+        raise NotImplementedError(
+            f"layer profiling not implemented for family {cfg.family!r} "
+            f"(supported: {PROFILED_FAMILIES})")
     ops = [("embed", -1)]
     for g in range(cfg.num_groups):
         if cfg.family == "ssm":

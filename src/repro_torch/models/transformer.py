@@ -1,13 +1,16 @@
 """LM forward + loss; the port of ``repro.models.transformer``.
 
 The layer stack is a Python loop over the stacked group axis of
-``params["blocks"]`` (the reference scans it).  The dense family (gemma2's
-local/global pair included), the ssm family (RWKV6), the hybrid family
-(zamba2: two Mamba2 layers a group, then the one shared attention+MLP
-block, ``params["shared_block"]``, applied after every group) and the moe
-family (its auxiliary losses summed over groups, as the reference sums
-them) run here; audio and vlm raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+``params["blocks"]`` (the reference scans it).  Every family runs here:
+dense (gemma2's local/global pair included), ssm (RWKV6), hybrid (zamba2:
+two Mamba2 layers a group, then the one shared attention+MLP block,
+``params["shared_block"]``, applied after every group), moe (its auxiliary
+losses summed over groups, as the reference sums them), vlm (four self
+layers a group, then a cross layer over the patch embeddings whose
+attention and MLP are gated by ``tanh`` of their gates, which the draw
+makes zero) and audio (whisper: the encoder over the frame embeddings,
+then decoder layers of self attention, cross attention over the encoder's
+output and an MLP).  Both modality families need their ``modality``.
 """
 from __future__ import annotations
 
@@ -19,21 +22,12 @@ from . import attention as A
 from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
-from .common import embed, lm_logits, norm, rope_freqs
+from .common import embed, lm_logits, norm, rope_freqs, sinusoid_pos
 from .config import ModelConfig
 from .mlp import mlp_block
 
-# the families the port runs, and those still to be ported, by ROADMAP.md item
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
-_LATER = {"audio": "item 17 (Whisper)", "vlm": "item 17 (Llama-3.2-vision)"}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md {_LATER.get(cfg.family, 'A')})")
+# the families the port runs: all of the reference's
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
 
 
 def group_params(tree, i: int):
@@ -48,17 +42,24 @@ def group_params(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
-def dense_layer(cfg: ModelConfig, p, x, rope, *, window: int = 0):
-    """The reference's dense layer without its cross-attention gates, which
-    only the VLM uses (ROADMAP.md item 17)."""
+def dense_layer(cfg: ModelConfig, p, x, rope, *, window: int = 0,
+                kv_x=None, gated: bool = False):
+    """A dense layer; with ``kv_x`` its attention is cross attention over
+    ``kv_x`` (no rope, no causal mask), and ``gated`` scales the attention
+    and MLP outputs by ``tanh`` of the layer's gates (the VLM's cross
+    layer)."""
     h = norm(cfg, p["ln1"], x)
     a = A.attn_block(cfg, p["attn"], h, rope=rope, causal=True,
-                     window=window, attn_softcap=cfg.attn_softcap)
+                     window=window, kv_x=kv_x, attn_softcap=cfg.attn_softcap)
+    if gated:
+        a = a * torch.tanh(p["gate_attn"]).to(a.dtype)
     if "ln1_post" in p:
         a = norm(cfg, p["ln1_post"], a)
     x = x + a
     h = norm(cfg, p["ln2"], x)
     m = mlp_block(cfg, p["mlp"], h)
+    if gated:
+        m = m * torch.tanh(p["gate_mlp"]).to(m.dtype)
     if "ln2_post" in p:
         m = norm(cfg, p["ln2_post"], m)
     return x + m
@@ -74,7 +75,30 @@ def moe_layer(cfg: ModelConfig, p, x, rope, aux_acc: Dict):
     return x + y
 
 
-def _group_step(cfg: ModelConfig, params, x, gp, rope, aux: Dict):
+def whisper_dec_layer(cfg: ModelConfig, p, x, enc_out):
+    h = norm(cfg, p["ln1"], x)
+    x = x + A.attn_block(cfg, p["attn"], h, rope=None, causal=True)
+    h = norm(cfg, p["ln2"], x)
+    x = x + A.attn_block(cfg, p["cross"], h, rope=None, kv_x=enc_out)
+    h = norm(cfg, p["ln3"], x)
+    return x + mlp_block(cfg, p["mlp"], h)
+
+
+def whisper_enc_layer(cfg: ModelConfig, p, x):
+    h = norm(cfg, p["ln1"], x)
+    x = x + A.attn_block(cfg, p["attn"], h, rope=None, causal=False)
+    h = norm(cfg, p["ln2"], x)
+    return x + mlp_block(cfg, p["mlp"], h)
+
+
+def _group_step(cfg: ModelConfig, params, x, gp, rope, aux: Dict, modality):
+    if cfg.family == "audio":
+        return whisper_dec_layer(cfg, gp["lyr"], x, modality)
+    if cfg.family == "vlm":
+        for j in range(cfg.cross_attn_every - 1):
+            x = dense_layer(cfg, group_params(gp["self"], j), x, rope)
+        return dense_layer(cfg, gp["cross"], x, rope, kv_x=modality,
+                           gated=True)
     if cfg.family == "ssm":
         return R.rwkv_block(cfg, gp["lyr"], x)
     if cfg.family == "moe":
@@ -94,30 +118,48 @@ def _group_step(cfg: ModelConfig, params, x, gp, rope, aux: Dict):
 # ---------------------------------------------------------------------------
 
 
-def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor
+def encode_audio(cfg: ModelConfig, params, frames: torch.Tensor
+                 ) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, enc_seq, D)."""
+    x = frames + sinusoid_pos(frames.shape[1], cfg.d_model,
+                              device=frames.device).to(frames.dtype)
+    for i in range(cfg.encoder_layers):
+        x = whisper_enc_layer(cfg, group_params(params["encoder"], i), x)
+    return norm(cfg, params["enc_norm"], x)
+
+
+def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
+                   modality: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict]:
-    """tokens: (B, S) -> final-norm hidden states (B, S, D) + aux."""
-    require_ported(cfg)
+    """tokens: (B, S) -> final-norm hidden states (B, S, D) + aux.
+    ``modality``: the frame embeddings (audio) or patch embeddings (vlm)."""
     b, s = tokens.shape
     x = embed(cfg, params, tokens)
     rope = None
     if cfg.rope_theta:
         rope = rope_freqs(cfg.head_dim, cfg.rope_theta,
                           torch.arange(s, device=tokens.device))
+    if cfg.family == "audio":
+        assert modality is not None, "whisper needs frame embeddings"
+        modality = encode_audio(cfg, params, modality)
+        x = x + sinusoid_pos(s, cfg.d_model, device=x.device).to(x.dtype)
+    if cfg.family == "vlm":
+        assert modality is not None, "vlm needs patch embeddings"
     aux: Dict = {}
     if cfg.family == "moe":         # the reference's scan starts from zeros
         aux = {k: torch.zeros((), device=x.device)
                for k in ("moe_aux", "moe_zloss")}
     for i in range(cfg.num_groups):
         x = _group_step(cfg, params, x, group_params(params["blocks"], i),
-                        rope, aux)
+                        rope, aux, modality)
     return norm(cfg, params["final_norm"], x), aux
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+            modality: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """Full-logit forward (prefill/serving path)."""
-    x, aux = forward_hidden(cfg, params, tokens)
+    x, aux = forward_hidden(cfg, params, tokens, modality=modality)
     return lm_logits(cfg, params, x), aux
 
 
@@ -151,7 +193,8 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict
     """Next-token cross entropy (+ MoE aux losses, averaged over groups),
     chunked over sequence."""
     tokens = batch["tokens"]
-    x, aux = forward_hidden(cfg, params, tokens)
+    x, aux = forward_hidden(cfg, params, tokens,
+                            modality=batch.get("modality"))
     loss = chunked_ce(cfg, params, x, tokens, mask=batch.get("mask"))
     metrics = {"ce_loss": loss}
     if aux:

@@ -14,6 +14,9 @@ zamba2, whose wkv and Mamba ``h`` states the reference returns in float32
 whatever the cache's dtype: after the first step the port's states are
 float32 too, and its cache bytes are the reference's at every step (C.13,
 C.14), in the fused cache and in the sliced step's per-group list form.
+whisper and the VLM decode with a modality drawn from numpy and rounded to
+bf16 (the same values in all three evaluations), their cross K/V stored in
+bf16 (C.18), the VLM's cross gates set non-zero (C.15).
 """
 import dataclasses
 
@@ -39,20 +42,38 @@ def _step(rcfg):
     return jax.jit(lambda p, c, t, pos: RD.serve_step(rcfg, p, c, t, pos))
 
 
+def _modality(cfg):
+    """bf16-rounded frame or patch embeddings as float32 numpy, or None."""
+    if cfg.family not in ("audio", "vlm"):
+        return None
+    n = cfg.encoder_seq if cfg.family == "audio" else cfg.num_patches
+    a = np.random.default_rng(7).normal(size=(BATCH, n, cfg.d_model))
+    return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma2-27b", "rwkv6-7b",
-                                  "zamba2-7b", "olmoe-1b-7b"])
+                                  "zamba2-7b", "olmoe-1b-7b",
+                                  "whisper-large-v3", "llama-3.2-vision-11b"])
 def test_bf16_decode_no_further_from_f32_than_the_reference(name):
     cfg = dataclasses.replace(get_config(name).reduced(), dtype="bfloat16")
     rcfg = dataclasses.replace(ref_config(name).reduced(), dtype="bfloat16")
     rcfg32 = ref_config(name).reduced()
     rprm = RP.init_params(rcfg, seed=0)
+    if cfg.family == "vlm":          # C.15: non-zero cross gates
+        g = np.random.default_rng(15).uniform(0.5, 1.5, (2, cfg.num_groups))
+        rprm["blocks"]["cross"]["gate_attn"] = jnp.asarray(g[0], jnp.bfloat16)
+        rprm["blocks"]["cross"]["gate_mlp"] = jnp.asarray(-g[1], jnp.bfloat16)
     rounded = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), rprm)
     rprm32 = jax.tree.map(jnp.asarray, rounded)
     prm = P.params_from_numpy(rounded, "cpu", "bfloat16")
     n = STEPS + 2
-    cache = D.init_cache(cfg, prm, BATCH, n)
-    rcache = RD.init_cache(rcfg, rprm, BATCH, n)
-    rcache32 = RD.init_cache(rcfg32, rprm32, BATCH, n)
+    m = _modality(cfg)
+    cache = D.init_cache(cfg, prm, BATCH, n, modality=None if m is None
+                         else torch.from_numpy(m).to(torch.bfloat16))
+    rcache = RD.init_cache(rcfg, rprm, BATCH, n, modality=None if m is None
+                           else jnp.asarray(m, jnp.bfloat16))
+    rcache32 = RD.init_cache(rcfg32, rprm32, BATCH, n, modality=None
+                             if m is None else jnp.asarray(m))
     step, step32 = _step(rcfg), _step(rcfg32)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                (BATCH, STEPS))
@@ -71,6 +92,10 @@ def test_bf16_decode_no_further_from_f32_than_the_reference(name):
             assert cache["lyr"]["wkv"].dtype == torch.float32
             assert str(rcache["lyr"]["wkv"].dtype) == "float32"
             assert cache["lyr"]["shift_tm"].dtype == torch.bfloat16
+        if m is not None:
+            cross = cache["lyr"]["cross"] if cfg.family == "audio" \
+                else cache["cross"]
+            assert cross["k"].dtype == cross["v"].dtype == torch.bfloat16
         if cfg.family == "hybrid":
             assert cache["mamba"]["h"].dtype == torch.float32
             assert str(rcache["mamba"]["h"].dtype) == "float32"

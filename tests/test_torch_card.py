@@ -246,3 +246,49 @@ def test_hybrid_and_moe_serve_step_on_the_card_match_the_cpu(name):
         assert cache["mamba"]["h"].dtype == torch.float32
         assert cache["mamba"]["conv"].dtype == torch.bfloat16
         assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["whisper-large-v3", "llama-3.2-vision-11b"])
+def test_modality_serve_step_on_the_card_matches_the_cpu(name):
+    """whisper-large-v3 and llama-3.2-vision-11b reduced, float32, with frames
+    or patches drawn from numpy (the VLM's cross gates set non-zero,
+    ROADMAP.md C.15): ``init_cache`` fills the cross caches (through the
+    encoder, for whisper) and twelve teacher-forced serve steps on the card
+    give the CPU's logits within 2e-2 (tests/test_decode_consistency.py's
+    tolerance), every cache leaf on the card; in bf16 the cross K/V are
+    stored in bf16 (C.18) and the logits are finite."""
+    _card()
+    import dataclasses
+    from repro_torch.models import decode, get_config, params
+    cfg = get_config(name).reduced()
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+    n = cfg.encoder_seq if cfg.family == "audio" else cfg.num_patches
+    modality = torch.from_numpy(
+        rng.normal(size=(2, n, cfg.d_model)).astype(np.float32))
+    gates = rng.uniform(0.5, 1.5, (2, cfg.num_groups)).astype(np.float32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        prm = params.init_params(cfg, seed=0, device=dev)
+        if cfg.family == "vlm":
+            prm["blocks"]["cross"]["gate_attn"] = torch.from_numpy(gates[0]).to(dev)
+            prm["blocks"]["cross"]["gate_mlp"] = torch.from_numpy(-gates[1]).to(dev)
+        cache = decode.init_cache(cfg, prm, 2, 16, modality=modality.to(dev))
+        out = []
+        for i in range(12):
+            logits, cache = decode.serve_step(cfg, prm, cache,
+                                              tokens[:, i:i + 1].to(dev), i)
+            out.append(logits.cpu().numpy())
+        assert all(t.device.type == dev for t in decode._leaves(cache))
+        runs[dev] = np.stack(out)
+    assert np.isfinite(runs["cuda"]).all()
+    assert float(np.abs(runs["cuda"] - runs["cpu"]).max()) < 2e-2
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    prm = params.init_params(bf, seed=0, device="cuda")
+    cache = decode.init_cache(bf, prm, 2, 16,
+                              modality=modality.to("cuda", torch.bfloat16))
+    cross = cache["lyr"]["cross"] if cfg.family == "audio" else cache["cross"]
+    assert cross["k"].dtype == torch.bfloat16 and bool(cross["k"].any())
+    logits, cache = decode.serve_step(bf, prm, cache, tokens[:, :1].to("cuda"), 0)
+    assert bool(torch.isfinite(logits).all())

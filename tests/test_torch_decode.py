@@ -1,14 +1,19 @@
 """The port's decode path against the reference's, on the CPU.
 
-``repro_torch.models.decode`` (dense, ssm, hybrid and moe families)
-against ``repro.models.decode`` on the same weights and tokens: the serve
-step's logits step by step at 1e-5 in float32 (plain, ring and int8
-caches, RWKV6's O(1) state, zamba2's Mamba states beside its shared
-block's KV cache, olmoe's banked experts), the cache's contents, the
-teacher-forced twin of ``tests/test_decode_consistency.py`` at its 2e-2,
-the slot surgery, the traps ``ROADMAP.md`` C.7 and C.8 pin, the sliced
-step bit for bit against the fused one, and the analytic FLOPs against
-``FlopCounterMode``.
+``repro_torch.models.decode`` (every family) against
+``repro.models.decode`` on the same weights and tokens: the serve step's
+logits step by step at 1e-5 in float32 (plain, ring and int8 caches,
+RWKV6's O(1) state, zamba2's Mamba states beside its shared block's KV
+cache, olmoe's banked experts, whisper's self and cross caches over its
+encoder's output, the VLM's four self caches a group and its cross caches
+over the patches), the cache's contents, the teacher-forced twin of
+``tests/test_decode_consistency.py`` at its 2e-2 over all seven of its
+``ARCHS``, the slot surgery, the traps ``ROADMAP.md`` C.7 and C.8 pin, the
+sliced step bit for bit against the fused one, and the analytic FLOPs
+against ``FlopCounterMode``.  whisper and the VLM decode with a modality
+drawn from numpy, filled into the cross caches by ``init_cache``, and the
+VLM's cross gates set non-zero in both packages (C.15: they are drawn as
+zeros, which would hide the cross layer).
 """
 import dataclasses
 
@@ -39,13 +44,31 @@ def _np(x) -> np.ndarray:
 
 
 def _both(name, kv="", **over):
+    """The reduced configs and the reference's seeded weights in both
+    packages; the VLM's cross gates set to the same non-zero values."""
     cfg = dataclasses.replace(get_config(name).reduced(), kv_cache_dtype=kv,
                               **over)
     rcfg = dataclasses.replace(ref_config(name).reduced(), kv_cache_dtype=kv,
                                **over)
     rprm = RP.init_params(rcfg, seed=0)
+    if cfg.family == "vlm":
+        g = np.random.default_rng(15).uniform(0.5, 1.5, (2, cfg.num_groups))
+        rprm["blocks"]["cross"]["gate_attn"] = jnp.asarray(g[0], jnp.float32)
+        rprm["blocks"]["cross"]["gate_mlp"] = jnp.asarray(-g[1], jnp.float32)
     prm = P.params_from_numpy(jax.tree.map(_np, rprm), "cpu", cfg.dtype)
     return cfg, rcfg, prm, rprm
+
+
+def _modality(cfg, b):
+    """(port, reference) frame or patch embeddings from numpy, as
+    ``tests/test_decode_consistency.py`` draws them; (None, None) for the
+    families without one."""
+    if cfg.family not in ("audio", "vlm"):
+        return None, None
+    n = cfg.encoder_seq if cfg.family == "audio" else cfg.num_patches
+    a = np.random.default_rng(7).normal(size=(b, n, cfg.d_model))
+    a = a.astype(np.float32)
+    return torch.from_numpy(a), jnp.asarray(a)
 
 
 def _leaves(tree, path=""):
@@ -69,7 +92,8 @@ def _ref_step(rcfg):
 # (arch, kv cache, steps, config overrides, tolerance).  The ring runs past
 # its window: qwen2 with gemma2's local/global pair at window 8, and gemma2
 # itself (window 16) at 2e-4, where both packages' logits sit ~5e-5 from a
-# float64 evaluation (tests/test_torch_models.py).
+# float64 evaluation (tests/test_torch_models.py); whisper and the VLM at
+# 2e-4 too, where both sit 1e-5-9e-5 from one (tests/test_torch_crossmodal.py).
 CASES = {"qwen2-0.5b": ("qwen2-0.5b", "", 12, {}, F32),
          "qwen2-7b": ("qwen2-7b", "", 12, {}, F32),
          "starcoder2-7b": ("starcoder2-7b", "", 12, {}, F32),
@@ -83,7 +107,10 @@ CASES = {"qwen2-0.5b": ("qwen2-0.5b", "", 12, {}, F32),
                                   num_layers=4), F32),
          "rwkv6-7b": ("rwkv6-7b", "", 12, {}, F32),
          "zamba2-7b": ("zamba2-7b", "", 12, {}, F32),
-         "olmoe-1b-7b": ("olmoe-1b-7b", "", 12, {}, F32)}
+         "olmoe-1b-7b": ("olmoe-1b-7b", "", 12, {}, F32),
+         "whisper-large-v3": ("whisper-large-v3", "", 12, {}, 2e-4),
+         "whisper int8": ("whisper-large-v3", "int8", 12, {}, 2e-4),
+         "llama-3.2-vision-11b": ("llama-3.2-vision-11b", "", 12, {}, 2e-4)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -92,8 +119,9 @@ def test_serve_step_matches_reference(case):
     name, kv, steps, over, tol = CASES[case]
     cfg, rcfg, prm, rprm = _both(name, kv, **over)
     b = 2
-    cache = D.init_cache(cfg, prm, b, steps + 2)
-    rcache = RD.init_cache(rcfg, rprm, b, steps + 2)
+    m, jm = _modality(cfg, b)
+    cache = D.init_cache(cfg, prm, b, steps + 2, modality=m)
+    rcache = RD.init_cache(rcfg, rprm, b, steps + 2, modality=jm)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, steps))
     rstep = _ref_step(rcfg)
     for i in range(steps):
@@ -116,10 +144,12 @@ def test_serve_step_matches_reference(case):
 
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma2-27b", "rwkv6-7b",
-                                  "zamba2-7b", "olmoe-1b-7b"])
+                                  "zamba2-7b", "olmoe-1b-7b",
+                                  "whisper-large-v3", "llama-3.2-vision-11b"])
 def test_decode_matches_forward(name):
-    """Port twin of tests/test_decode_consistency.py: teacher-forced decode
-    reproduces the port's own forward at every position within 2e-2.  MoE at
+    """Port twin of tests/test_decode_consistency.py over all seven of its
+    ``ARCHS``: teacher-forced decode reproduces the port's own forward at
+    every position within 2e-2, whisper and the VLM with a modality.  MoE at
     capacity factor 8.0, as there: the full-sequence forward may drop
     tokens at a tight capacity, per-token decode never does."""
     over = dict(moe_capacity_factor=8.0) if name == "olmoe-1b-7b" else {}
@@ -127,8 +157,9 @@ def test_decode_matches_forward(name):
     b, s = 2, 24 if cfg.local_global else 12
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)))
-    full, _ = T.forward(cfg, prm, tokens)
-    cache = D.init_cache(cfg, prm, b, max_len=s + 4)
+    m, _ = _modality(cfg, b)
+    full, _ = T.forward(cfg, prm, tokens, modality=m)
+    cache = D.init_cache(cfg, prm, b, max_len=s + 4, modality=m)
     step = D.make_serve_step(cfg)
     errs = []
     for i in range(s):
@@ -156,20 +187,26 @@ def test_int8_kv_cache_close_to_forward():
 @pytest.mark.parametrize("max_len", [8, 40])
 @pytest.mark.parametrize("name,kv", [("qwen2-0.5b", ""), ("qwen2-0.5b", "int8"),
                                      ("gemma2-27b", ""), ("rwkv6-7b", ""),
-                                     ("zamba2-7b", ""), ("olmoe-1b-7b", "")])
+                                     ("zamba2-7b", ""), ("olmoe-1b-7b", ""),
+                                     ("whisper-large-v3", ""),
+                                     ("whisper-large-v3", "int8"),
+                                     ("llama-3.2-vision-11b", "")])
 def test_cache_layout_and_stats_match_reference(name, kv, max_len):
     """``cache_max_len`` is the largest ``shape[-2]`` of a leaf with four
     axes or more, in the reference and in the port.  RWKV6's cache has no
     length axis: it reads the wkv state's ``head_dim``.  zamba2's also reads
     the Mamba ``h`` leaf's ``ssm_state`` (16 reduced, 64 at full width), so
-    it is ``max(max_len, ssm_state)``: 16 for a cache of 8."""
+    it is ``max(max_len, ssm_state)``: 16 for a cache of 8.  The VLM's reads
+    the cross K/V's patch axis (9 reduced), and whisper's is its self
+    cache's length whatever ``encoder_seq`` is (C.17)."""
     cfg, rcfg, prm, rprm = _both(name, kv)
     assert D.cache_shapes(cfg, 3, max_len) == RD.cache_shapes(rcfg, 3, max_len)
     assert D.cache_batch_axes(cfg) == RD.cache_batch_axes(rcfg)
     cache = D.init_cache(cfg, prm, 3, max_len)
     rcache = RD.init_cache(rcfg, rprm, 3, max_len)
     assert D.step_stats(cfg, cache) == RD.step_stats(rcfg, rcache)
-    want = {"ssm": cfg.head_dim, "hybrid": max(max_len, cfg.ssm_state)}
+    want = {"ssm": cfg.head_dim, "hybrid": max(max_len, cfg.ssm_state),
+            "vlm": max(max_len, cfg.num_patches)}
     assert D.cache_max_len(cfg, cache) == RD.cache_max_len(rcfg, rcache) \
         == want.get(cfg.family, max_len)
     assert all(not leaf.any() for _, leaf in _leaves(cache))
@@ -177,12 +214,17 @@ def test_cache_layout_and_stats_match_reference(name, kv, max_len):
 
 @pytest.mark.parametrize("name,kv", [("qwen2-0.5b", ""), ("qwen2-0.5b", "int8"),
                                      ("gemma2-27b", ""), ("rwkv6-7b", ""),
-                                     ("zamba2-7b", ""), ("olmoe-1b-7b", "")])
+                                     ("zamba2-7b", ""), ("olmoe-1b-7b", ""),
+                                     ("whisper-large-v3", ""),
+                                     ("whisper-large-v3", "int8"),
+                                     ("llama-3.2-vision-11b", "")])
 @pytest.mark.parametrize("form", ["fused", "per-group list"])
 def test_cache_slot_reset_and_corrupt(name, kv, form):
     """Port twin of tests/test_serve_faults.py's slot surgery, on the fused
     cache and on the sliced step's per-group list form, which are views of
-    one stacked cache: the surgery reaches the stacked tensors."""
+    one stacked cache: the surgery reaches the stacked tensors, the cross
+    K/V at their batch axes too (1 behind the group axis; the VLM's self
+    caches at 2, behind their layer axis)."""
     cfg = dataclasses.replace(get_config(name).reduced(), kv_cache_dtype=kv)
     prm = P.init_params(cfg, seed=0, device="cpu")
     fused = D.init_cache(cfg, prm, 3, 8)
@@ -299,8 +341,13 @@ def test_profile_ops_match_reference():
         assert D.profile_ops(get_config(name).reduced()) \
             == RD.profile_ops(ref_config(name).reduced())
     for name in ("whisper-large-v3", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+        with pytest.raises(NotImplementedError) as got:
             D.profile_ops(get_config(name).reduced())
+        with pytest.raises(NotImplementedError) as want:
+            RD.profile_ops(ref_config(name).reduced())
+        assert str(got.value) == str(want.value)
+        with pytest.raises(NotImplementedError):
+            D.make_profiled_serve_step(get_config(name).reduced())
 
 
 @pytest.mark.parametrize("name,cache_len", [("qwen2-0.5b", 32),
@@ -325,9 +372,3 @@ def test_analytic_costs_and_flop_counter(name, cache_len):
     assert problems == [], report
     assert report["flops_rel_err"] <= MPF.FLOPS_RTOL == RMPF.FLOPS_RTOL
     assert report["counted_flops"] > 0
-
-
-def test_other_families_are_refused():
-    for name in ("whisper-large-v3", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-            D.cache_shapes(get_config(name).reduced(), 2, 8)

@@ -335,10 +335,3 @@ def test_chunked_ce_over_several_chunks():
         _close(T.chunked_ce(cfg, prm, x, torch.from_numpy(tokens), chunk=chunk),
                RT.chunked_ce(rcfg, rprm, jx, jnp.asarray(tokens), chunk=chunk),
                F32)
-
-
-@pytest.mark.parametrize("name", ["whisper-large-v3", "llama-3.2-vision-11b"])
-def test_other_families_are_refused(name):
-    cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        T.forward(cfg, {}, torch.zeros((1, 2), dtype=torch.long))

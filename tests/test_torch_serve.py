@@ -7,8 +7,11 @@ surgery twin is in ``tests/test_torch_decode.py``, and RWKV6's engine
 twins in ``tests/test_torch_rwkv.py``), the layer-profiler join of
 ``tests/test_modelprof.py``, and the two CLIs writing byte-identical
 ``--stable`` span streams and layer records under one seed, plain, under a
-fault plan, and for RWKV6, zamba2 and olmoe.  The JAX-free modules the
-port copies verbatim are held to be the reference's files.
+fault plan, and for RWKV6, zamba2 and olmoe; for whisper and the VLM (their
+cross caches zero, as the engine leaves them) the span streams, plain and
+under a fault plan, the chaos engine against the reference's, and the
+refusal of ``--profile-layers``.  The JAX-free modules the port copies
+verbatim are held to be the reference's files.
 """
 import pathlib
 import re
@@ -705,14 +708,20 @@ def test_engine_refuses_params_on_another_device():
 _COVERAGE_GATE = re.compile(r"^step \d+: coverage [0-9.]+ < ")
 
 
-def _reference_cli(monkeypatch, args, out, warm=False, tries=3):
+def _reference_cli(monkeypatch, args, out, warm=False, tries=3, layers=True):
     """The reference's CLI in this process.  ``warm``: one run first, whose
     own layer-coverage gate may fail on the JAX compiles it triggers
     (a first step that compiles takes ~0.2 s against ~1 ms of layers).
     The run that writes the streams is repeated, at most ``tries`` times in
     all, when and only when every problem it raises is that coverage gate;
-    any other failure fails at once."""
+    any other failure fails at once.  ``layers=False``: spans only, for the
+    families the layer profiler refuses."""
     from repro.launch import serve as ref_serve
+    if not layers:
+        monkeypatch.setattr("sys.argv", ["serve", *args, "--spans-out",
+                                         f"{out}.spans"])
+        ref_serve.main()
+        return
     if warm:
         monkeypatch.setattr("sys.argv", ["serve", *args,
                                          "--spans-out", f"{out}.warm.spans",
@@ -820,6 +829,90 @@ def test_rwkv_cli_streams_byte_identical_to_reference(tmp_path, monkeypatch,
         mine = (tmp_path / f"port.{kind}").read_bytes()
         assert mine and mine == (tmp_path / f"ref.{kind}").read_bytes(), kind
     assert f'"{op}"'.encode() in (tmp_path / "port.layers").read_bytes()
+
+
+@pytest.mark.parametrize("faulty", [False, True])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-11b"])
+def test_modality_cli_streams_byte_identical_to_reference(tmp_path, monkeypatch,
+                                                          capsys, arch, faulty):
+    """whisper (audio) and the VLM: the engine serves them with zeroed cross
+    caches, as the reference's does, and the port's ``--stable`` span stream
+    is the reference's, plain and under a fault plan of NaN logits, cache
+    corruptions (which reach the cross K/V too) and latency spikes."""
+    args = ["--arch", arch, "--slots", "2", "--requests", "6", "--gen", "6",
+            "--prompt-len", "4", "--arrival-mean", "0.5", "--stable"]
+    if faulty:
+        plan = FLT.FaultPlan.generate(7, 80, 0.15, 2,
+                                      kinds=(FLT.NAN_LOGITS, FLT.CACHE_CORRUPT,
+                                             FLT.LATENCY_SPIKE),
+                                      spike_us=100)
+        plan.save(str(tmp_path / "plan.json"))
+        args += ["--fault-plan", str(tmp_path / "plan.json")]
+    _reference_cli(monkeypatch, args, tmp_path / "ref", layers=False)
+    capsys.readouterr()
+    SV.main(["--device", "cpu", *args, "--spans-out", str(tmp_path / "port.spans")])
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith("OK")
+    assert ("retries" in out) if faulty else (f"{arch}: 6/6 requests" in out)
+    mine = (tmp_path / "port.spans").read_bytes()
+    assert mine and mine == (tmp_path / "ref.spans").read_bytes()
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-11b"])
+def test_modality_cli_refuses_profile_layers(tmp_path, monkeypatch, arch):
+    """The layer profiler slices neither family: both CLIs raise the
+    reference's ``NotImplementedError``, word for word."""
+    from repro.launch import serve as ref_serve
+    args = ["--arch", arch, "--requests", "1", "--profile-layers",
+            str(tmp_path / "layers.jsonl")]
+    monkeypatch.setattr("sys.argv", ["serve", *args])
+    with pytest.raises(NotImplementedError) as want:
+        ref_serve.main()
+    with pytest.raises(NotImplementedError) as got:
+        SV.main(["--device", "cpu", *args])
+    assert str(got.value) == str(want.value)
+    assert not (tmp_path / "layers.jsonl").exists()
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-11b"])
+def test_modality_chaos_run_matches_reference(arch):
+    """Twin of test_chaos_runs_are_byte_identical for whisper and the VLM:
+    NaN logits, exceptions, latency spikes and cache corruptions under
+    resilience, in the port's engine and the reference's on the same
+    weights and arrivals: no request lost, the same detections, and the
+    same ``--stable`` span stream."""
+    from repro.launch import faults as RFLT
+    from repro.launch import resilience as RRES
+    from repro.launch import serve as RSV
+    from repro.models import get_config as ref_config
+    from repro.models import params as RMP
+    from repro.obs import SpanTracer as RSpanTracer
+    cfg, rcfg = get_config(arch).reduced(), ref_config(arch).reduced()
+    trace = traffic.synth_trace(SEED, 6, 0.5, (3, 5), (3, 6))
+    max_len = 4 * (traffic.total_tokens(trace)
+                   + max(t.prompt_len + t.gen_len for t in trace)) + 64
+    runs = []
+    for sv, c, params, tracer, faults, res, kw in (
+            (SV, cfg, MP.init_params(cfg, SEED, "cpu"), SpanTracer, FLT, RES,
+             {"device": "cpu"}),
+            (RSV, rcfg, RMP.init_params(rcfg, SEED), RSpanTracer, RFLT, RRES,
+             {})):
+        plan = faults.FaultPlan.from_json(_mixed_plan().to_json())
+        tr = tracer()
+        eng = sv.Engine(c, params, 2, max_len, spans=tr, faults=plan,
+                        resilience=res.ResilienceConfig(deadline_ticks=300,
+                                                        seed=SEED), **kw)
+        rng = np.random.default_rng(SEED + 1)
+        sv.replay(eng, [(t.arrival_step, sv.Request(t.rid, rng.integers(
+            1, cfg.vocab_size, size=t.prompt_len).astype(np.int32), t.gen_len))
+            for t in trace])
+        runs.append((eng, SP.to_jsonl(tr.events, stable=True)))
+    (eng, stream), (reng, rstream) = runs
+    assert SP.validate(SP.from_jsonl(stream), slots=2,
+                       engine_steps=eng.steps) == []
+    assert len(eng.done) == 6 and eng.faults_injected > 0
+    assert eng.faults_detected == reng.faults_detected > 0
+    assert stream == rstream and stream
 
 
 @pytest.mark.parametrize("path", ["obs/metrics.py", "obs/spans.py",
