@@ -92,7 +92,40 @@ toolkit.  Phases:
    ``FaultPlan`` with resilience on: no request is lost and the two
    ``--stable`` span streams are byte-identical.  This path launches none
    of the four kernels (the reference's serving path runs no Pallas
-   kernel).
+   kernel);
+9. the training path (``repro_torch.runtime.trainer``, ``launch.steps``,
+   ``optim.adamw``, ``checkpoint.manager``, ``data.pipeline``) on
+   qwen2-0.5b at full width, every kernel count zeroed just before it and
+   read just after (it launches none of the four: the reference's train
+   step is ``jax.value_and_grad`` over jnp ops): (a) ``train card vs cpu``
+   holds one step's loss and every gradient leaf, float32, all 24 layers,
+   one ``SyntheticLM`` batch of 2 x 64, against the same step on the CPU
+   (loss at 1e-4 relative, each leaf at 2e-3 of its largest magnitude, the
+   tolerance of ``tests/test_torch_trainer.py``), then one AdamW update on
+   the card and on the CPU from the same CPU gradients (params, m and v
+   within 2e-5); ``train atomics`` calls the path's scatter-adds twice
+   each (the embedding's backward as indexing and as ``F.embedding``,
+   ``take_along_dim``'s in the CE, the MoE dispatch's ``index_put_``) and
+   says which give other bits; (b) ``train restart`` runs
+   ``Trainer.run_with_restarts`` in float32 at full width on 4 of the 24
+   layers (listed under ``reduced``: a float32 state of all 24 is ~6 GB
+   to write at every checkpoint), 8 steps of 8 x 64, a checkpoint every 4,
+   a ``WorkerFailure`` at step 5: it must resume at 4, its steps 6-7 must
+   equal an unfailed run's at ``rel=1e-4`` (whether steps 4-7 are bitwise
+   equal is printed), and the unfailed run's checkpoint, saved from the
+   card, must restore on the CPU with its bits; (c) ``train timed`` trains
+   the registered bfloat16 config, all 24 layers, remat as registered,
+   with ``examples/train_lm.py``'s AdamW (lr 3e-3, warm-up 2, weight decay
+   0.01) for 12 steps of 8 x 1024 tokens (the first 2 not timed): a finite
+   loss that falls, tokens/s, the median step wall, the device time,
+   events and busy share of 2 profiled steps, the optimizer's device time
+   alone and its share, the peak allocated memory with remat on and for
+   one step with it off, the seconds and bytes of the final checkpoint
+   save, and ``6·N·T`` against 989 TFLOP/s; (d) ``train example`` runs
+   ``examples/train_lm_torch.py --steps 14 --inject-failure 6 --batch 4
+   --seq 32`` on the card: ``restarts=1`` and ``OK``.  One JSON ``train``
+   line holds them.  Checkpoints go to ``build/chip_smoke_train`` and are
+   removed.
 
 Prints one JSON ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a card, outside a checkout of
@@ -102,6 +135,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1210,6 +1244,416 @@ def phase_serve_chaos(sp: ServePath) -> dict:
     return row
 
 
+# -- the training path ----------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-0.5b"
+# examples/train_lm.py's AdamW; total_steps is each phase's own
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=2, weight_decay=0.01)
+# tests/test_torch_trainer.py's GRAD_TOL: both packages' float32 gradients
+# sit up to 1e-3 of a leaf's largest magnitude from a float64 evaluation
+TRAIN_GRAD_TOL = 2e-3
+TRAIN_LOSS_RTOL = 1e-4       # one float32 loss over 24 layers, two devices
+TRAIN_UPDATE_TOL = 2e-5      # params, m, v after one update, card vs CPU
+RESTART_LAYERS = 4           # a full-depth float32 state is ~6 GB a save
+TIMED = dict(batch=8, seq=1024, steps=12, untimed=2)
+TRAIN_CKPT = ROOT / "build" / "chip_smoke_train"    # ignored by git
+
+
+def _train_modules():
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import get_config, params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import trainer
+    return DataConfig, SyntheticLM, steps, get_config, params, adamw, trainer
+
+
+def _keys(tree, prefix: str = "") -> List[str]:
+    """The leaves' paths of a dict tree in sorted-key order (``adamw.leaves``'s)."""
+    if isinstance(tree, dict):
+        return [k for name in sorted(tree) for k in _keys(tree[name], f"{prefix}/{name}")]
+    return [prefix]
+
+
+def _leaf_excess(got: List[torch.Tensor], want: List[torch.Tensor],
+                 keys: Optional[List[str]] = None):
+    """(max |got - want| over leaves, the largest of each leaf's max |got -
+    want| over its largest |want|, that leaf's key)."""
+    worst_abs, worst_rel, worst_key = 0.0, 0.0, None
+    for i, (g, w) in enumerate(zip(got, want)):
+        d = float((g.float().cpu() - w.float().cpu()).abs().max())
+        rel = d / max(float(w.float().abs().max()), 1e-30)
+        worst_abs = max(worst_abs, d)
+        if rel > worst_rel:
+            worst_rel, worst_key = rel, keys[i] if keys else i
+    return worst_abs, worst_rel, worst_key
+
+
+def phase_train_vs_cpu() -> dict:
+    """(a) One train step's loss and gradients at full width and depth in
+    float32 on the card against the CPU, then one AdamW update on each from
+    the same (CPU) gradients."""
+    import dataclasses
+    from repro_torch.device import full_f32
+    DataConfig, SyntheticLM, steps, get_config, params, adamw, _ = _train_modules()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    batch = {k: torch.as_tensor(v) for k, v in SyntheticLM(
+        DataConfig(cfg.vocab_size, 64, 2), model_cfg=cfg).batch(0).items()}
+    prm = params.stream_params(cfg, SERVE_SEED, CARD, "float32")
+    cpu_prm = _to(prm, "cpu")
+    with full_f32():
+        t0 = time.perf_counter()
+        card_m, card_g = steps.grad_of(cfg, prm, _to(batch, CARD))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_m, cpu_g = steps.grad_of(cfg, cpu_prm, batch)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(card_m["loss"]) - float(cpu_m["loss"])) / abs(float(cpu_m["loss"]))
+    grad_abs, grad_rel, grad_leaf = _leaf_excess(card_g, cpu_g, _keys(cpu_prm))
+    finite = all(bool(torch.isfinite(g).all()) for g in card_g)
+    del card_g
+
+    opt = adamw.AdamWConfig(total_steps=TIMED["steps"], **TRAIN_OPT)
+    it = iter(cpu_g)
+    g_tree = adamw.tree_map(lambda _: next(it), cpu_prm)
+    cpu_new = adamw.apply_updates(opt, cpu_prm, g_tree, adamw.init_state(cpu_prm))
+    card_new = adamw.apply_updates(opt, prm, _to(g_tree, CARD), adamw.init_state(prm))
+    update = {}
+    for name, pick in (("params", lambda r: r[0]), ("m", lambda r: r[1].m),
+                       ("v", lambda r: r[1].v)):
+        update[name] = _leaf_excess(adamw.leaves(pick(card_new)),
+                                    adamw.leaves(pick(cpu_new)))[0]
+    lr = [float(r[2]["lr"]) for r in (card_new, cpu_new)]
+    gn = [float(r[2]["grad_norm"]) for r in (card_new, cpu_new)]
+    del prm, card_new
+    torch.cuda.empty_cache()
+    row = {"arch": TRAIN_ARCH, "dtype": "float32", "layers": cfg.num_layers,
+           "batch": [2, 64], "params": params.count_params(cfg),
+           "loss_card": float(card_m["loss"]), "loss_cpu": float(cpu_m["loss"]),
+           "loss_rel_diff": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+           "grad_max_abs_diff": grad_abs, "grad_max_leaf_rel_diff": grad_rel,
+           "grad_worst_leaf": grad_leaf,
+           "grad_tol_of_leaf_max": TRAIN_GRAD_TOL,
+           "update_max_abs_diff": update, "update_tol": TRAIN_UPDATE_TOL,
+           "lr": lr, "grad_norm": gn,
+           "grad_seconds": {"card": card_s, "cpu": cpu_s}}
+    _check(finite, "card gradients not finite")
+    _check(loss_rel <= TRAIN_LOSS_RTOL, f"train loss card vs cpu: {loss_rel:.3g}")
+    _check(grad_rel <= TRAIN_GRAD_TOL, f"gradients card vs cpu: {grad_rel:.3g}")
+    _check(max(update.values()) <= TRAIN_UPDATE_TOL, f"update card vs cpu: {update}")
+    return row
+
+
+def _bits_twice(fn) -> bool:
+    """Two calls of ``fn`` (a list of tensors) give the same bits."""
+    first = [t.clone() for t in fn()]
+    second = fn()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def phase_atomics() -> dict:
+    """Do the training path's scatter-adds give the same bits twice on the
+    card?  The backward of the embedding lookup (qwen2-0.5b's 151,936 x
+    896 table, 8 x 64 tokens) as indexing (the reference's form) and as
+    ``F.embedding`` (the port's, ``models/common.embed``), of
+    ``take_along_dim`` in ``chunked_ce`` (a (8, 64, 151,936) float32
+    log-softmax), and the MoE dispatch's ``index_put_(accumulate=True)``
+    with its gather's backward (olmoe-1b-7b's layer: 64 experts of 2048 ->
+    1024, top 8, 512 tokens, weights from a seeded card generator)."""
+    import dataclasses
+    from repro_torch.models import get_config, params
+    from repro_torch.models import moe as MOE
+    gen = torch.Generator(device=CARD).manual_seed(SERVE_SEED)
+    cfg = get_config(TRAIN_ARCH)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 64), device=CARD, generator=gen)
+    table = torch.randn(cfg.vocab_size, cfg.d_model, device=CARD, generator=gen,
+                        requires_grad=True)
+    g_emb = torch.randn(8, 64, cfg.d_model, device=CARD, generator=gen)
+    lp = torch.randn(8, 64, cfg.vocab_size, device=CARD, generator=gen,
+                     requires_grad=True)
+    g_nll = torch.randn(8, 64, 1, device=CARD, generator=gen)
+    mcfg = dataclasses.replace(get_config("olmoe-1b-7b"), dtype="float32")
+    d, e = mcfg.d_model, mcfg.num_experts
+    p = {"router": torch.randn(d, e, device=CARD, generator=gen) / d ** 0.5}
+    for k, (shape, _) in params.moe_shapes(mcfg).items():
+        if k != "router":
+            p[k] = (torch.randn(*shape, device=CARD, generator=gen)
+                    / shape[1] ** 0.5).requires_grad_(True)
+    x = torch.randn(8, 64, d, device=CARD, generator=gen, requires_grad=True)
+    g_y = torch.randn(8, 64, d, device=CARD, generator=gen)
+
+    def moe():
+        y, _ = MOE.moe_block(mcfg, p, x)
+        return [y, *torch.autograd.grad(y, [x, p["w1"], p["w2"]], g_y)]
+    row = {
+        "embed_index_backward": _bits_twice(
+            lambda: torch.autograd.grad(table[tokens], table, g_emb)),
+        "embedding_backward": _bits_twice(
+            lambda: torch.autograd.grad(torch.nn.functional.embedding(
+                tokens, table), table, g_emb)),
+        "take_along_dim_backward": _bits_twice(
+            lambda: torch.autograd.grad(torch.take_along_dim(
+                lp, tokens[..., None], dim=-1), lp, g_nll)),
+        "moe_index_put_accumulate": _bits_twice(moe)}
+    del table, lp, p, x
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_restart() -> dict:
+    """(b) ``run_with_restarts`` at full width, float32, 4 of the 24 layers:
+    8 steps of 8 x 64, a checkpoint every 4, a ``WorkerFailure`` at step 5;
+    the run resumes at 4 and its steps 6-7 equal an unfailed run's at
+    ``rel=1e-4``; the unfailed run's last checkpoint, saved from the card,
+    restores on the CPU with its bits."""
+    import dataclasses
+    import shutil
+    DataConfig, _, _, get_config, params, adamw, trainer = _train_modules()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                              num_layers=RESTART_LAYERS)
+    steps = 8
+
+    def run(name, hook=None):
+        tr = trainer.Trainer(
+            cfg, trainer.TrainerConfig(total_steps=steps, checkpoint_every=4,
+                                       checkpoint_dir=str(TRAIN_CKPT / name),
+                                       max_restarts=2),
+            opt_cfg=adamw.AdamWConfig(total_steps=steps, **TRAIN_OPT),
+            data_cfg=DataConfig(cfg.vocab_size, 64, 8), failure_hook=hook,
+            device=CARD)
+        t0 = time.perf_counter()
+        state = tr.run_with_restarts()
+        torch.cuda.synchronize()
+        return tr, state, time.perf_counter() - t0
+
+    fired = []
+
+    def fail_once(step):
+        if step == 5 and not fired:
+            fired.append(step)
+            raise trainer.WorkerFailure("injected at step 5")
+
+    try:
+        base, state, base_s = run("base")
+        failed, _, failed_s = run("failed", fail_once)
+        resumes = [h for h in failed.history if "restart" in h]
+        want = {h["step"]: h["loss"] for h in base.history if "step" in h}
+        got = {h["step"]: h["loss"] for h in failed.history if "step" in h}
+        host = lambda t: torch.empty(t.shape, dtype=t.dtype)     # noqa: E731
+        like = {"params": adamw.tree_map(host, state["params"]),
+                "opt": adamw.OptState(host(state["opt"].step),
+                                      adamw.tree_map(host, state["opt"].m),
+                                      adamw.tree_map(host, state["opt"].v))}
+        back, at = base.ckpt.restore(like)
+        same = [torch.equal(a, b.cpu()) for a, b in zip(
+            adamw.leaves(back["params"]) + adamw.leaves(back["opt"].m)
+            + adamw.leaves(back["opt"].v) + [back["opt"].step],
+            adamw.leaves(state["params"]) + adamw.leaves(state["opt"].m)
+            + adamw.leaves(state["opt"].v) + [state["opt"].step])]
+        ckpt_bytes = (base.ckpt.dir / f"step_{at:08d}" / "arrays.npz").stat().st_size
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    row = {"arch": TRAIN_ARCH, "dtype": "float32", "layers": cfg.num_layers,
+           "batch": [8, 64], "steps": steps, "checkpoint_every": 4,
+           "failure_at": 5, "resumes": resumes,
+           "losses": [want[s] for s in range(steps)],
+           "replayed_losses": [got[s] for s in range(4, steps)],
+           "steps_6_7_within_rel_1e-4": all(
+               abs(got[s] - want[s]) <= 1e-4 * abs(want[s]) for s in (6, 7)),
+           "bitwise_equal_steps_4_7": all(got[s] == want[s] for s in range(4, steps)),
+           "restored_on_cpu_bitwise": all(same), "restored_step": at,
+           "checkpoint_bytes": ckpt_bytes,
+           "wall_s": {"unfailed": base_s, "failed": failed_s},
+           "reduced": [f"depth: {cfg.num_layers} of 24 layers (a float32 "
+                       f"state of all 24 is ~6 GB a save; full width)"]}
+    _check(resumes == [{"restart": 1, "resume_step": 4}], f"resumes {resumes}")
+    _check(row["steps_6_7_within_rel_1e-4"], f"replay {row['replayed_losses']} "
+                                             f"vs {row['losses'][4:]}")
+    _check(row["restored_on_cpu_bitwise"], "card checkpoint restored on the "
+                                           "CPU with other bits")
+    return row
+
+
+def _kernel_class(name: str) -> str:
+    """A device kernel's class by its name: cuBLAS products with float32
+    inputs (``f32f32``) and the others (``nvjet`` is cuBLASLt's Hopper
+    family), reductions, copies, elementwise, other."""
+    low = name.lower()
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
+        return "gemm_f32" if "f32f32_f32f32" in low else "gemm_other"
+    if "reduce" in low or "softmax" in low or "norm" in low:
+        return "reduce"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def _range_ms(prof, prefix: str) -> dict:
+    """Device ms of the profiler's user ranges named ``prefix*`` (the spans
+    it draws on the device timeline for a CPU ``record_function``), or {}
+    when it drew none."""
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.key.startswith(prefix):
+            out[ev.key] = out.get(ev.key, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return out
+
+
+def phase_train_timed() -> dict:
+    """(c) The registered bfloat16 config at full width and depth (remat as
+    registered), ``Trainer.run_with_restarts`` for 12 steps of 8 x 1024
+    tokens with ``examples/train_lm.py``'s AdamW, the first 2 steps not
+    timed; then 2 steps under the profiler, the optimizer alone under the
+    profiler, and one step with remat off for its peak memory."""
+    import dataclasses
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    DataConfig, _, steps_mod, get_config, params, adamw, trainer = _train_modules()
+    cfg = get_config(TRAIN_ARCH)
+    b, s, n, untimed = TIMED["batch"], TIMED["seq"], TIMED["steps"], TIMED["untimed"]
+    opt = adamw.AdamWConfig(total_steps=n, **TRAIN_OPT)
+    tr = trainer.Trainer(cfg, trainer.TrainerConfig(
+        total_steps=n, checkpoint_every=n, checkpoint_dir=str(TRAIN_CKPT / "timed"),
+        max_restarts=0), opt_cfg=opt, data_cfg=DataConfig(cfg.vocab_size, s, b),
+        device=CARD)
+    saves, save = [], tr.ckpt.save
+
+    def timed_save(step, state, blocking=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(step, state, blocking=True)
+        saves.append((step, time.perf_counter() - t0))
+    tr.ckpt.save = timed_save
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        state = tr.run_with_restarts()
+        run_s = time.perf_counter() - t0
+        peak_remat = torch.cuda.max_memory_allocated()
+        ckpt_bytes = (tr.ckpt.dir / f"step_{n:08d}" / "arrays.npz").stat().st_size
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    hist = [h for h in tr.history if "step" in h]
+    losses = [h["loss"] for h in hist]
+    walls = [h["step_time_s"] for h in hist[untimed:]]
+    tokens = b * s
+
+    # 2 steps under the profiler: device time, events, busy share, ranges
+    batch = tr.batch(n)
+
+    def step():
+        _, m = tr.step_fn(state, batch)
+        return float(m["loss"])
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) / 2
+    counts = {}
+    device = {k: v for k, v in _device_events(prof, counts).items()
+              if not k.startswith("train_step.")}
+    ranges = {k: v / 2 for k, v in _range_ms(prof, "train_step.").items()}
+    step_device_ms = sum(device.values()) / 2
+    events = sum(c for k, c in counts.items() if not k.startswith("train_step.")) / 2
+    by_class = {}
+    for k, v in device.items():
+        by_class[_kernel_class(k)] = by_class.get(_kernel_class(k), 0.0) + v / 2
+
+    # the optimizer alone, on one step's gradients
+    _, grads = steps_mod.grad_of(cfg, state["params"], batch)
+    it = iter(grads)
+    g_tree = adamw.tree_map(lambda _: next(it), state["params"])
+    opt_ms, opt_kernels = _device_profile(
+        lambda: adamw.apply_updates_(opt, state["params"], g_tree, state["opt"]),
+        iters=2)
+    del grads, g_tree
+
+    # one step with remat off
+    off = steps_mod.make_train_step(dataclasses.replace(cfg, remat=False), opt)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m_off = off(state, batch)
+    loss_off = float(m_off["loss"])
+    off_wall = time.perf_counter() - t0
+    peak_off = torch.cuda.max_memory_allocated()
+    n_params = params.count_params(cfg)
+    flops = 6 * n_params * tokens
+    del state
+    torch.cuda.empty_cache()
+    row = {"arch": TRAIN_ARCH, "dtype": cfg.dtype, "remat": cfg.remat,
+           "layers": cfg.num_layers, "params": n_params,
+           "batch": [b, s], "tokens_per_step": tokens, "steps": n,
+           "untimed_steps": untimed, "losses": losses,
+           "tokens_per_s": tokens * len(walls) / sum(walls),
+           "step_wall_ms_median": statistics.median(walls) * 1e3,
+           "step_wall_ms": [w * 1e3 for w in walls],
+           "run_wall_s": run_s,
+           "profiled_step_wall_ms": prof_wall * 1e3,
+           "step_device_ms": step_device_ms,
+           "device_busy_share": step_device_ms / (statistics.median(walls) * 1e3),
+           "device_events_per_step": events,
+           "device_kernels_top": {k[:60]: v / 2 for k, v in sorted(
+               device.items(), key=lambda kv: -kv[1])[:8]},
+           "device_ms_by_class": by_class,
+           "optimizer_device_ms": opt_ms,
+           "optimizer_share_of_step": opt_ms / step_device_ms,
+           "grads_device_ms": step_device_ms - opt_ms,
+           "optimizer_kernels_top": {k[:60]: v for k, v in
+                                     list(opt_kernels.items())[:4]},
+           "ranges_device_ms": ranges,
+           "peak_allocated_remat_on": peak_remat,
+           "peak_allocated_remat_off": peak_off,
+           "remat_off_step_wall_ms": off_wall * 1e3, "remat_off_loss": loss_off,
+           "final_save_s": saves[-1][1] if saves else None,
+           "final_save_step": saves[-1][0] if saves else None,
+           "checkpoint_bytes": ckpt_bytes,
+           "model_flops_per_step": flops,
+           "mfu_device_989": flops / (step_device_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "mfu_wall_989": flops / statistics.median(walls) / PEAK_FLOPS[torch.bfloat16],
+           "card": _card_name_and_limit()}
+    _check(all(np.isfinite(losses)) and np.isfinite(loss_off), f"losses {losses}")
+    _check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    _check(len(saves) == 1 and saves[0][0] == n, f"saves {saves}")
+    return row
+
+
+def phase_train_example() -> dict:
+    """(d) ``examples/train_lm_torch.py`` on the card: a failure injected at
+    step 6 of 14, one restart, and ``OK``."""
+    import shutil
+    args = ["--steps", "14", "--inject-failure", "6", "--batch", "4", "--seq", "32"]
+    try:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "train_lm_torch.py"), *args,
+             "--ckpt-dir", str(TRAIN_CKPT / "example")],
+            capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    lines = r.stdout.strip().splitlines()
+    summary = next((line for line in lines if line.startswith("arch=")), "")
+    row = {"args": args, "returncode": r.returncode, "summary": summary,
+           "last_line": lines[-1] if lines else "", "wall_s": wall}
+    _check(r.returncode == 0, f"train_lm_torch.py: {r.stderr[-1000:]}")
+    _check("restarts=1" in summary and row["last_line"] == "OK",
+           f"train_lm_torch.py printed {lines[-3:]}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1309,6 +1753,22 @@ def main() -> int:
         del sp
         gc.collect()
         torch.cuda.empty_cache()
+    # the training path, which launches none of the four kernels: every
+    # count zeroed just before it and read just after
+    train = {}
+    _zero_counts(counters)
+    for label, key, fn in (("train card vs cpu", "card_vs_cpu", phase_train_vs_cpu),
+                           ("train atomics", "atomics", phase_atomics),
+                           ("train restart", "restart", phase_train_restart),
+                           ("train timed", "timed", phase_train_timed),
+                           ("train example", "example", phase_train_example)):
+        if run(label, fn):
+            train[key] = results.pop(label)
+        gc.collect()
+        torch.cuda.empty_cache()
+    train["kernel_launches"] = {m.__name__.rsplit(".", 1)[-1]: m.launches
+                                for m in counters}
+    print(json.dumps({"train": train}))
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if failures:

@@ -125,7 +125,12 @@ def sinusoid_pos(seq: int, dim: int, offset: int = 0,
 
 
 def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]            # (B, S, D)
+    """The rows of ``tokens`` (B, S) -> (B, S, D).  ``F.embedding`` gives
+    the rows that indexing gives; its backward sums repeated tokens in a
+    fixed order on the CPU and the card, where indexing's backward adds
+    them with atomics on the CPU (a restarted training run then
+    replays other bits)."""
+    x = F.embedding(tokens, params["embed"])
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return constrain(x, "batch", "seq", "embed")

@@ -11,12 +11,21 @@ attention and MLP are gated by ``tanh`` of their gates, which the draw
 makes zero) and audio (whisper: the encoder over the frame embeddings,
 then decoder layers of self attention, cross attention over the encoder's
 output and an MLP).  Both modality families need their ``modality``.
+
+When gradients are being taken (grad mode on and a tensor that requires
+one) the reference's rematerialization is honoured: with ``cfg.remat``
+each group step and each encoder layer runs under
+``torch.utils.checkpoint`` (its activations recomputed in the backward
+pass, as ``jax.checkpoint`` of the scan body does), and each chunk of
+``chunked_ce`` always does, so the live logits are one chunk's.  The gradients are bit-equal either way (tested).  Otherwise
+(serving, decode, ``no_grad``) nothing is wrapped.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import mamba as M
@@ -35,6 +44,34 @@ def group_params(tree, i: int):
     if isinstance(tree, dict):
         return {k: group_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unbind_groups(tree, n: int):
+    """The ``n`` groups of a tree stacked over groups, as a list of trees
+    of views: one ``unbind`` a leaf, whose backward stacks the groups'
+    gradients once (indexing each group would add a full-size gradient a
+    group)."""
+    if isinstance(tree, dict):
+        per_key = {k: unbind_groups(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _taking_grads(*trees) -> bool:
+    """Grad mode is on and some tensor of ``trees`` requires a gradient."""
+    def needs(t) -> bool:
+        if isinstance(t, dict):
+            return any(needs(v) for v in t.values())
+        return isinstance(t, torch.Tensor) and t.requires_grad
+    return torch.is_grad_enabled() and any(needs(t) for t in trees)
+
+
+def _remat(cfg: ModelConfig, grads: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``cfg.remat``
+    and ``grads`` (gradients are being taken)."""
+    if cfg.remat and grads:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -65,14 +102,13 @@ def dense_layer(cfg: ModelConfig, p, x, rope, *, window: int = 0,
     return x + m
 
 
-def moe_layer(cfg: ModelConfig, p, x, rope, aux_acc: Dict):
+def moe_layer(cfg: ModelConfig, p, x, rope) -> Tuple[torch.Tensor, Dict]:
+    """(output, the layer's auxiliary losses)."""
     h = norm(cfg, p["ln1"], x)
     x = x + A.attn_block(cfg, p["attn"], h, rope=rope, causal=True)
     h = norm(cfg, p["ln2"], x)
     y, aux = MOE.moe_block(cfg, p["moe"], h)
-    for k, v in aux.items():
-        aux_acc[k] = aux_acc[k] + v
-    return x + y
+    return x + y, aux
 
 
 def whisper_dec_layer(cfg: ModelConfig, p, x, enc_out):
@@ -91,26 +127,30 @@ def whisper_enc_layer(cfg: ModelConfig, p, x):
     return x + mlp_block(cfg, p["mlp"], h)
 
 
-def _group_step(cfg: ModelConfig, params, x, gp, rope, aux: Dict, modality):
+def _group_step(cfg: ModelConfig, params, x, gp, rope, modality
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One group: (output, the group's auxiliary losses, {} but for moe).
+    The losses are returned, not accumulated here, so that a recomputed
+    group adds them once."""
     if cfg.family == "audio":
-        return whisper_dec_layer(cfg, gp["lyr"], x, modality)
+        return whisper_dec_layer(cfg, gp["lyr"], x, modality), {}
     if cfg.family == "vlm":
-        for j in range(cfg.cross_attn_every - 1):
-            x = dense_layer(cfg, group_params(gp["self"], j), x, rope)
+        for lp in unbind_groups(gp["self"], cfg.cross_attn_every - 1):
+            x = dense_layer(cfg, lp, x, rope)
         return dense_layer(cfg, gp["cross"], x, rope, kv_x=modality,
-                           gated=True)
+                           gated=True), {}
     if cfg.family == "ssm":
-        return R.rwkv_block(cfg, gp["lyr"], x)
+        return R.rwkv_block(cfg, gp["lyr"], x), {}
     if cfg.family == "moe":
-        return moe_layer(cfg, gp["lyr"], x, rope, aux)
+        return moe_layer(cfg, gp["lyr"], x, rope)
     if cfg.family == "hybrid":
-        for j in range(cfg.hybrid_attn_every - 1):
-            x = x + M.mamba_block(cfg, group_params(gp["mamba"], j), x)
-        return dense_layer(cfg, params["shared_block"], x, rope)
+        for lp in unbind_groups(gp["mamba"], cfg.hybrid_attn_every - 1):
+            x = x + M.mamba_block(cfg, lp, x)
+        return dense_layer(cfg, params["shared_block"], x, rope), {}
     if cfg.local_global:
         x = dense_layer(cfg, gp["local"], x, rope, window=cfg.sliding_window)
-        return dense_layer(cfg, gp["global"], x, rope)
-    return dense_layer(cfg, gp["lyr"], x, rope)
+        return dense_layer(cfg, gp["global"], x, rope), {}
+    return dense_layer(cfg, gp["lyr"], x, rope), {}
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +163,9 @@ def encode_audio(cfg: ModelConfig, params, frames: torch.Tensor
     """Whisper encoder over stub frame embeddings (B, enc_seq, D)."""
     x = frames + sinusoid_pos(frames.shape[1], cfg.d_model,
                               device=frames.device).to(frames.dtype)
-    for i in range(cfg.encoder_layers):
-        x = whisper_enc_layer(cfg, group_params(params["encoder"], i), x)
+    grads = _taking_grads(params["encoder"], x)
+    for lp in unbind_groups(params["encoder"], cfg.encoder_layers):
+        x = _remat(cfg, grads, whisper_enc_layer, cfg, lp, x)
     return norm(cfg, params["enc_norm"], x)
 
 
@@ -149,9 +190,12 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
     if cfg.family == "moe":         # the reference's scan starts from zeros
         aux = {k: torch.zeros((), device=x.device)
                for k in ("moe_aux", "moe_zloss")}
-    for i in range(cfg.num_groups):
-        x = _group_step(cfg, params, x, group_params(params["blocks"], i),
-                        rope, aux, modality)
+    grads = _taking_grads(params, x, modality)
+    for gp in unbind_groups(params["blocks"], cfg.num_groups):
+        x, group_aux = _remat(cfg, grads, _group_step, cfg, params, x, gp,
+                              rope, modality)
+        for k, v in group_aux.items():
+            aux[k] = aux[k] + v
     return norm(cfg, params["final_norm"], x), aux
 
 
@@ -167,7 +211,10 @@ def chunked_ce(cfg: ModelConfig, params, x: torch.Tensor,
                tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,
                chunk: int = 512) -> torch.Tensor:
     """Next-token cross entropy over sequence chunks, each chunk's (B, c, V)
-    logits formed on its own, summed in the reference's chunk order."""
+    logits formed on its own (and, when gradients are being taken, formed
+    again in the backward pass, as the reference's ``jax.checkpoint`` of
+    the chunk),
+    summed in the reference's chunk order."""
     b, s, d = x.shape
     tgt = torch.cat([tokens[:, 1:], torch.zeros((b, 1), dtype=tokens.dtype,
                                                 device=tokens.device)], dim=1)
@@ -178,13 +225,21 @@ def chunked_ce(cfg: ModelConfig, params, x: torch.Tensor,
     c = min(chunk, s)
     n = s // c if s % c == 0 else 1
     c = s // n
-    total = torch.zeros((), device=x.device)
-    for i in range(n):
-        xc, tc, vc = (t[:, i * c:(i + 1) * c] for t in (x, tgt, valid))
+
+    def body(xc, tc, vc):
         logits = lm_logits(cfg, params, xc)      # (B, c, V)
         lp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.take_along_dim(lp, tc[..., None].long(), dim=-1)[..., 0]
-        total = total + (nll * vc).sum()
+        return (nll * vc).sum()
+
+    grads = _taking_grads(params, x)
+    total = torch.zeros((), device=x.device)
+    for i in range(n):
+        xc, tc, vc = (t[:, i * c:(i + 1) * c] for t in (x, tgt, valid))
+        if grads:
+            total = total + checkpoint(body, xc, tc, vc, use_reentrant=False)
+        else:
+            total = total + body(xc, tc, vc)
     return total / torch.clamp_min(valid.sum(), 1.0)
 
 

@@ -1,5 +1,6 @@
 """The port on the card (``-m cuda``; these tests skip without one): its CUDA
-kernels, and the serve step of the decode path.
+kernels, the serve step of the decode path, and a train step with its
+checkpoint.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card.py
 
@@ -292,3 +293,49 @@ def test_modality_serve_step_on_the_card_matches_the_cpu(name):
     assert cross["k"].dtype == torch.bfloat16 and bool(cross["k"].any())
     logits, cache = decode.serve_step(bf, prm, cache, tokens[:, :1].to("cuda"), 0)
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(tmp_path):
+    """qwen2-0.5b reduced, float32: one train step from the seed-0 state on
+    the card and on the CPU (``launch.steps.make_train_step``, 4 x 32
+    tokens): the loss at 1e-5, the gradient norm and the moments at
+    ``tests/test_torch_trainer.py``'s 2e-3 of their scale, the parameters
+    within twice the step's rate; then a checkpoint saved from the card
+    restores on the CPU with the card state's bits."""
+    _card()
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import get_config, params
+    from repro_torch.optim import adamw
+    cfg = get_config("qwen2-0.5b").reduced()
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=8,
+                            weight_decay=0.01)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4)).batch(0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        prm = params.init_params(cfg, seed=0, device=dev)
+        state = {"params": prm, "opt": adamw.init_state(prm)}
+        state, m = steps.make_train_step(cfg, opt)(
+            state, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        assert all(t.device.type == dev for t in adamw.leaves(state["params"]))
+        runs[dev] = state, m
+    (cpu, cm), (card, gm) = runs["cpu"], runs["cuda"]
+    assert float(gm["loss"]) == pytest.approx(float(cm["loss"]), rel=1e-5)
+    assert float(gm["grad_norm"]) == pytest.approx(float(cm["grad_norm"]), rel=2e-3)
+    for a, b in zip(adamw.leaves(card["opt"].m), adamw.leaves(cpu["opt"].m)):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 2e-3 * scale
+    for a, b in zip(adamw.leaves(card["params"]), adamw.leaves(cpu["params"])):
+        assert float((a.cpu() - b).abs().max()) <= 2 * float(cm["lr"])
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(1, card)
+    ckpt.wait()
+    like = {"params": adamw.tree_map(torch.zeros_like, cpu["params"]),
+            "opt": adamw.init_state(cpu["params"])}
+    back, step = ckpt.restore(like)
+    assert step == 1 and int(back["opt"].step) == 1
+    for a, b in zip(adamw.leaves(back["params"]) + adamw.leaves(back["opt"].v),
+                    adamw.leaves(card["params"]) + adamw.leaves(card["opt"].v)):
+        assert a.device.type == "cpu" and torch.equal(a, b.cpu())

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it, or its batched serving driver
-(``examples/serve_batched_torch.py``), loads neither JAX nor ``repro``."""
+"""The port stands alone: importing it, or its drivers
+(``examples/serve_batched_torch.py``, ``examples/train_lm_torch.py``), loads
+neither JAX nor ``repro``."""
 import json
 import os
 import pathlib
@@ -30,10 +31,14 @@ import repro_torch.obs, repro_torch.obs.metrics, repro_torch.obs.spans
 import repro_torch.obs.traffic, repro_torch.obs.modelprof
 import repro_torch.launch.faults, repro_torch.launch.resilience
 import repro_torch.launch.serve
+import repro_torch.data.pipeline, repro_torch.optim.adamw
+import repro_torch.optim.compression, repro_torch.checkpoint.manager
+import repro_torch.runtime.trainer, repro_torch.launch.steps
+import repro_torch.launch.train
 import importlib.util
-spec = importlib.util.spec_from_file_location(
-    "serve_batched_torch", "examples/serve_batched_torch.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name in ("serve_batched_torch", "train_lm_torch"):
+    spec = importlib.util.spec_from_file_location(name, f"examples/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 repro_torch.models.all_names()          # imports the ten config modules
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
