@@ -125,7 +125,28 @@ toolkit.  Phases:
    ``examples/train_lm_torch.py --steps 14 --inject-failure 6 --batch 4
    --seq 32`` on the card: ``restarts=1`` and ``OK``.  One JSON ``train``
    line holds them.  Checkpoints go to ``build/chip_smoke_train`` and are
-   removed.
+   removed;
+10. ``op analysis`` (after qwen2-0.5b's ``serve``): ``modelprof.crosscheck``
+   counts one full-width bf16 ``serve_step`` at 4 slots and cache 200 with
+   ``launch.op_analysis`` on the card: FLOPs within 2% of the analytic
+   model's, bytes within a factor 5 (the reference's constants), no
+   collective bytes; the serve phase's layer records ranked by
+   ``offload_report`` under the analytic costs at batch 1, cache 4096 and
+   the H100's datasheet peaks; one JSON ``analysis`` line;
+11. ``dry run``: ``python -m repro_torch.launch.dryrun --device cuda`` in
+   a process of its own, started before the VLM's weight draw and run on
+   the host's CPU beside it, over ``DRYRUN_CELLS`` on the fake 16x16 and
+   2x16x16 meshes (fake CUDA tensors, a fake process group), and waited
+   for right after that draw, before the VLM's first timed phase: every
+   cell ``ok``, olmoe-1b-7b's expert-parallel all-reduce among its
+   collectives; one JSON ``dryrun`` line a cell, with the process's
+   seconds, the draw's and the script's wait (its ``run_s`` are taken on a
+   host the draw shares);
+12. ``compiler examples``: ``examples/compile_to_calyx_torch.py --model
+   ffnn --factor 2 --simulate-rtl`` prints ``matches estimate`` and an
+   oracle error (the torch oracle on the card) under 1e-4;
+   ``examples/banking_sweep_torch.py``, a check on the host, prints the
+   sweep; one JSON ``compiler_examples`` line.
 
 Prints one JSON ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a card, outside a checkout of
@@ -1136,6 +1157,7 @@ def phase_serve(sp: ServePath) -> dict:
         ops = dict.fromkeys(op for op, _ in sp.decode.profile_ops(cfg))
         op_mean_us = {op: statistics.fmean(by_op[op]) for op in ops}
         layer_steps = eng.steps
+        sp.layer_records = layers.records
     else:
         reduced.append(f"no layer-profiled run: the reference's "
                        f"PROFILED_FAMILIES leave out {cfg.family!r}")
@@ -1654,6 +1676,160 @@ def phase_train_example() -> dict:
     return row
 
 
+# -- the launch layer: op analysis, dry run, compiler examples ---------------
+
+ANALYSIS_ARCH = "qwen2-0.5b"
+ANALYSIS_AT = dict(batch=4, cache_len=200)      # the serve phase's slots, cache
+OFFLOAD_AT = dict(batch=1, cache_len=4096)      # tests/test_modelprof.py's
+# the dry run's cells on the production meshes; llama-3.2-vision-11b
+# prefill_32k is left out: its step dispatches ~5.5M ops (the port's Python
+# attention loop over 2,080 kv blocks a layer at 32k tokens, PERF.md §6),
+# several minutes alone
+DRYRUN_CELLS = (("qwen2-7b", "train_4k", "pod16x16"),
+                ("gemma2-27b", "train_4k", "pod2x16x16"),
+                ("olmoe-1b-7b", "decode_32k", "pod16x16"),
+                ("zamba2-7b", "long_500k", "pod16x16"))
+DRYRUN_BESIDE = "llama-3.2-vision-11b"     # beside its weight draw
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"     # ignored by git
+DRYRUN_TIMEOUT = 480
+EXAMPLES_OUT = ROOT / "build" / "chip_smoke_examples"
+
+
+def phase_op_analysis(sp: ServePath) -> dict:
+    """``modelprof.crosscheck`` on the full-width bf16 serve step at the
+    serve phase's 4 slots and cache 200: the op counter's FLOPs and bytes
+    against the analytic model (FLOPs within ``FLOPS_RTOL``, bytes within a
+    factor ``BYTES_FACTOR``), no collective on one card; and the offload
+    ranking of the serve phase's layer records under the analytic costs at
+    batch 1, cache 4096 and the H100's peaks."""
+    mpf, cfg = sp.modelprof, sp.cfg
+    t0 = time.perf_counter()
+    report, problems = mpf.crosscheck(cfg, device=CARD, params=sp.prm,
+                                      **ANALYSIS_AT)
+    run_s = time.perf_counter() - t0
+    _check(problems == [], f"crosscheck: {problems}")
+    _check(report["collective_bytes"] == 0,
+           f"collective bytes on one card: {report['collective_bytes']}")
+    peaks = mpf.device_peaks()
+    rows = mpf.offload_report(cfg, sp.layer_records,
+                              mpf.analytic_op_costs(cfg, **OFFLOAD_AT), peaks)
+    _check(rows and [r["rank"] for r in rows] == list(range(1, len(rows) + 1)),
+           "offload report: no ranked rows")
+    row = {"arch": sp.arch, "dtype": cfg.dtype, **ANALYSIS_AT, **report,
+           "flops_rtol": mpf.FLOPS_RTOL, "bytes_factor": mpf.BYTES_FACTOR,
+           "run_s": run_s, "offload_at": OFFLOAD_AT, "peaks": list(peaks),
+           "offload": rows, "card": _card_name_and_limit()}
+    print(json.dumps({"analysis": row}))
+    return row
+
+
+def start_dryrun() -> subprocess.Popen:
+    """Start ``python -m repro_torch.launch.dryrun --device cuda`` over
+    ``DRYRUN_CELLS`` in a process of its own (the fake process group owns
+    it), on the host's CPU beside a weight draw, which times nothing."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+           CARD, "--force", "--out", str(DRYRUN_OUT)]
+    cmd += [f"--cell={a}:{s}:{m}" for a, s, m in DRYRUN_CELLS]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(ROOT),
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    proc.started = time.time()
+    return proc
+
+
+def phase_dryrun(proc: subprocess.Popen, draw_end: float) -> List[dict]:
+    """Wait for the dry run, right after the draw it ran beside and before
+    any timed phase: every cell ``ok``, the expert-parallel cell's
+    all-reduce among its collectives; one ``dryrun`` line a cell, with the
+    seconds from its start to its last record (``process_s``) and to the
+    draw's end (``draw_s``), and the script's wait for it (``waited_s``)."""
+    import shutil
+    try:
+        left = DRYRUN_TIMEOUT - (time.time() - proc.started)
+        out, err = proc.communicate(timeout=max(left, 1.0))
+        waited = time.time() - draw_end
+        r = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+        paths = [DRYRUN_OUT / f"{a}__{s}__{m}.json" for a, s, m in DRYRUN_CELLS]
+        paths = [p for p in paths if p.exists()]
+        recs = [json.loads(p.read_text()) for p in paths]
+        wall = max((p.stat().st_mtime for p in paths), default=proc.started) \
+            - proc.started
+    finally:
+        proc.kill()
+        proc.wait()
+        shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    _check(r.returncode == 0, f"dryrun exited {r.returncode}: "
+                              f"{r.stdout[-800:]} {r.stderr[-1500:]}")
+    _check(len(recs) == len(DRYRUN_CELLS), f"{len(recs)} dry-run records")
+    card = _card_name_and_limit()
+    rows = []
+    for rec in recs:
+        _check(rec["status"] == "ok", f"{rec['arch']} {rec['shape']}: "
+                                      f"{rec.get('error')}")
+        roof = rec["roofline"]
+        row = {"arch": rec["arch"], "shape": rec["shape"],
+               "mesh": rec["mesh"], "chips": rec["chips"],
+               "arg_bytes_per_device": rec["arg_bytes_per_device"],
+               "peak_live_bytes_per_device":
+                   rec["memory_analysis"]["peak_live_bytes"],
+               "flops_per_device": rec["hlo_cost"]["flops"],
+               "bytes_per_device": rec["hlo_cost"]["traffic_bytes"],
+               "collective_bytes_per_device": rec["collectives"]["bytes_by_kind"],
+               "collective_ops": rec["collectives"]["count_by_kind"],
+               "model_flops": rec["model_flops"],
+               "dominant": roof["dominant"],
+               "roofline_frac": roof["roofline_frac"],
+               "useful_flops_frac": roof["useful_flops_frac"],
+               "ops": rec["hlo_bytes"], "run_s": rec["run_s"],
+               "process_s": wall, "draw_s": draw_end - proc.started,
+               "waited_s": waited, "card": card}
+        print(json.dumps({"dryrun": row}))
+        rows.append(row)
+    moe = [r for r in rows if r["arch"] == "olmoe-1b-7b"]
+    _check(all(r["collective_ops"].get("all-reduce", 0) > 0 for r in moe),
+           "the expert-parallel cell shows no all-reduce")
+    return rows
+
+
+def phase_compiler_examples() -> dict:
+    """The compiler example twins: ``compile_to_calyx_torch.py --model ffnn
+    --factor 2 --simulate-rtl`` prints ``matches estimate`` and an oracle
+    error (the torch oracle on the card) under the design tolerance;
+    ``banking_sweep_torch.py``, a check on the host (it compiles and
+    estimates only), prints the paper's sweep."""
+    import re
+    import shutil
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    EXAMPLES_OUT.mkdir(parents=True, exist_ok=True)
+    try:
+        r = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "compile_to_calyx_torch.py"),
+             "--model", "ffnn", "--factor", "2", "--simulate-rtl",
+             "--device", CARD, "--emit-verilog", str(EXAMPLES_OUT / "ffnn_f2.sv"),
+             "--out", str(EXAMPLES_OUT / "ffnn_f2.futil")],
+            capture_output=True, text=True, timeout=300, cwd=str(ROOT), env=env)
+        sweep = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "banking_sweep_torch.py")],
+            capture_output=True, text=True, timeout=300, cwd=str(ROOT), env=env)
+    finally:
+        shutil.rmtree(EXAMPLES_OUT, ignore_errors=True)
+    _check(r.returncode == 0, f"compile_to_calyx_torch.py: {r.stderr[-1000:]}")
+    rtl = next((line.strip() for line in r.stdout.splitlines()
+                if "rtl cycles=" in line), "")
+    err = re.search(r"max\|out - oracle\|=([0-9.e+-]+)", rtl)
+    _check("(matches estimate)" in rtl and err is not None,
+           f"compile_to_calyx_torch.py printed {rtl!r}")
+    _check(float(err.group(1)) < DESIGN_TOL,
+           f"oracle error {err.group(1)} over {DESIGN_TOL}")
+    _check(sweep.returncode == 0 and "speedup 2->4" in sweep.stdout,
+           f"banking_sweep_torch.py: {sweep.stderr[-1000:]}")
+    row = {"compile_to_calyx": rtl, "oracle_max_abs_err": float(err.group(1)),
+           "tolerance": DESIGN_TOL,
+           "banking_sweep": sweep.stdout.strip().splitlines()[-2:]}
+    print(json.dumps({"compiler_examples": row}))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1739,22 +1915,54 @@ def main() -> int:
                 name, src, replaces, cases, launches, full_f32)):
             kernels.append(results[f"{name} times"])
     run("host cost", lambda: phase_host_cost(ops, checks))
-    for arch, layers, cpu_groups in SERVE_ARCHS:
-        if not run(f"{arch} weights",
-                   lambda: ServePath(arch, layers, cpu_groups)):
-            continue
-        sp = results.pop(f"{arch} weights")
-        run(f"{arch} decode vs forward", lambda: phase_decode_vs_forward(sp))
-        run(f"{arch} serve", lambda: phase_serve(sp))
-        run(f"{arch} serve chaos", lambda: phase_serve_chaos(sp))
-        # free the weights on the card: the cached sliced step holds views,
-        # and the checked engine and its step wrapper form a cycle
-        sp.decode.make_profiled_serve_step.cache_clear()
-        del sp
-        gc.collect()
-        torch.cuda.empty_cache()
-    # the training path, which launches none of the four kernels: every
-    # count zeroed just before it and read just after
+    # the dry run works on the host's CPU beside the last architecture's
+    # weight draw (numpy, ~3 min), which times nothing, and is waited for
+    # right after it, before any timed phase
+    dryrun = None
+    try:
+        for arch, layers, cpu_groups in SERVE_ARCHS:
+            if arch == DRYRUN_BESIDE:
+                dryrun = start_dryrun()
+            drawn = run(f"{arch} weights",
+                        lambda: ServePath(arch, layers, cpu_groups))
+            if arch == DRYRUN_BESIDE:
+                draw_end = time.time()
+                run("dry run", lambda: phase_dryrun(dryrun, draw_end))
+            if not drawn:
+                continue
+            sp = results.pop(f"{arch} weights")
+            run(f"{arch} decode vs forward", lambda: phase_decode_vs_forward(sp))
+            run(f"{arch} serve", lambda: phase_serve(sp))
+            if arch == ANALYSIS_ARCH:
+                run("op analysis", lambda: phase_op_analysis(sp))
+            run(f"{arch} serve chaos", lambda: phase_serve_chaos(sp))
+            # free the weights on the card: the cached sliced step holds
+            # views, and the checked engine and its step wrapper form a cycle
+            sp.decode.make_profiled_serve_step.cache_clear()
+            del sp
+            gc.collect()
+            torch.cuda.empty_cache()
+        run_train_and_tools(run, results, counters)
+    finally:
+        if dryrun is not None:
+            dryrun.kill()
+            dryrun.wait()
+    if kernels:
+        print(json.dumps({"kernels": kernels}))
+    if failures:
+        for f in failures:
+            print(f"FAILED {f}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_train_and_tools(run, results, counters) -> None:
+    """The training path, which launches none of the four kernels (every
+    count zeroed just before it and read just after: the ``train`` line),
+    then the compiler examples."""
     train = {}
     _zero_counts(counters)
     for label, key, fn in (("train card vs cpu", "card_vs_cpu", phase_train_vs_cpu),
@@ -1769,16 +1977,7 @@ def main() -> int:
     train["kernel_launches"] = {m.__name__.rsplit(".", 1)[-1]: m.launches
                                 for m in counters}
     print(json.dumps({"train": train}))
-    if kernels:
-        print(json.dumps({"kernels": kernels}))
-    if failures:
-        for f in failures:
-            print(f"FAILED {f}", file=sys.stderr)
-        return 1
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    run("compiler examples", phase_compiler_examples)
 
 
 if __name__ == "__main__":

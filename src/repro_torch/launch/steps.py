@@ -1,22 +1,29 @@
 """Step functions (train / prefill / decode); the port of
 ``repro.launch.steps``.
 
-The reference's ``install_rules`` and ``step_and_args`` place the steps on
-a device mesh through ``sharding/rules.py`` and ``launch/shapes.py``; they
-wait for those modules (``ROADMAP.md`` A, item 20), and the steps here run
-on one device.
+The steps run eagerly on whatever their arguments are: plain tensors on
+one device, or DTensors on a mesh under the rules :func:`install_rules`
+sets (the dry run's fake mesh).  :func:`step_and_args` gives the step and
+its ordered arguments for a cell of ``launch/shapes.py``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from ..models import decode as D
 from ..models import transformer as TF
+from ..models.common import set_sharding_rules
 from ..models.config import ModelConfig
 from ..optim import adamw
+from ..sharding.rules import ShardingStrategy, logical_rules
+
+
+def install_rules(cfg: ModelConfig, mesh, st: ShardingStrategy,
+                  shard_heads: bool = False) -> None:
+    set_sharding_rules(mesh, logical_rules(st, shard_heads=shard_heads))
 
 
 def grad_of(cfg: ModelConfig, params, batch: Dict
@@ -92,3 +99,27 @@ def make_serve_step(cfg: ModelConfig):
         return D.serve_step(cfg, params, cache, tokens, pos)
 
     return serve_step
+
+
+def step_and_args(cfg: ModelConfig, shape_kind: str,
+                  specs: Dict[str, Any],
+                  opt_cfg: adamw.AdamWConfig = None,
+                  microbatches: int = 1):
+    """(callable, ordered example args) for running a given cell.  The
+    decode step ignores the value of ``specs["pos"]`` (the reference traces
+    it; the eager step needs a number) and writes at position 0: a step's
+    cost does not depend on it, every step attending over the whole cache
+    under a mask."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    if shape_kind == "train":
+        return (make_train_step(cfg, opt_cfg, microbatches=microbatches),
+                (specs["state"], specs["batch"]))
+    if shape_kind == "prefill":
+        return make_prefill_step(cfg), (specs["params"], specs["batch"])
+    serve = make_serve_step(cfg)
+
+    def serve_step(params, cache, tokens, pos):
+        return serve(params, cache, tokens, 0)
+
+    return serve_step, (specs["params"], specs["cache"], specs["tokens"],
+                        specs["pos"])

@@ -8,10 +8,14 @@
     # the registered config (bf16) on one card:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b
 
+    # the full config's train step on the production meshes, fake tensors:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
+        --dry-run --device cpu
+
 Without a card and without ``--device`` it raises ``RuntimeError``.
-``--dry-run`` (the reference lowers the full config on its production
-mesh) waits for ``launch/dryrun.py``, ``ROADMAP.md`` A item 20, and exits
-non-zero saying so.
+``--dry-run`` runs ``python -m repro_torch.launch.dryrun --arch A --shape
+train_4k --both --force --device D`` in a process of its own (the dry run
+owns its process's fake process group), as the reference's delegates.
 """
 import argparse
 import sys
@@ -39,14 +43,17 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=20)
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower the full config on the production mesh "
-                         "(not ported yet)")
+                    help="run the full config's train step on the "
+                         "production meshes instead of training")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        print("--dry-run needs launch/dryrun.py, which the port does not "
-              "have yet (ROADMAP.md A, item 20)", file=sys.stderr)
-        raise SystemExit(2)
+        # delegate to the dry-run module (it owns its process's fake group)
+        import subprocess
+        raise SystemExit(subprocess.call(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--arch", args.arch, "--shape", "train_4k", "--both",
+             "--force", "--device", args.device or "cuda"]))
 
     cfg = get_config(args.arch)
     if args.reduced:

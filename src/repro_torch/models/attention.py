@@ -16,12 +16,14 @@ length in float32 with the mask ``k_pos <= pos`` (C.7).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import apply_rope, constrain, rope_freqs, softcap
+from .common import (apply_rope, constrain, on_mesh, per_device, rope_freqs,
+                     softcap, unshard)
 from .config import ModelConfig
 
 _NEG = -1e30
@@ -42,9 +44,12 @@ def qkv_proj(cfg: ModelConfig, p, x: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, h, dh).transpose(1, 2)
-    k = k.reshape(b, sk, hkv, dh).transpose(1, 2)
-    v = v.reshape(b, sk, hkv, dh).transpose(1, 2)
+    # under rules the projections' columns are gathered before the heads
+    # are split out of them: DTensor cannot split a dimension its shards do
+    # not divide (C.20); the constraints below replicate heads anyway
+    q = unshard(q, -1).reshape(b, s, h, dh).transpose(1, 2)
+    k = unshard(k, -1).reshape(b, sk, hkv, dh).transpose(1, 2)
+    v = unshard(v, -1).reshape(b, sk, hkv, dh).transpose(1, 2)
     return constrain(q, "batch", "heads", None, None), \
         constrain(k, "batch", "kv_heads", None, None), \
         constrain(v, "batch", "kv_heads", None, None)
@@ -64,6 +69,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset``: absolute position of q[0] (decode/prefill continuation).
     q: (B,H,Sq,dh), k/v: (B,Hkv,Sk,dh).
     """
+    if on_mesh(q):
+        def attend(q, k, v):
+            return chunked_attention(
+                q, k, v, causal=causal, window=window,
+                attn_softcap=attn_softcap, scale=scale, q_chunk=q_chunk,
+                kv_chunk=kv_chunk, q_offset=q_offset)
+        return per_device(attend, q, k, v, like=q)
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = h // hkv
@@ -184,6 +196,19 @@ def _quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
+def attend_cache(qg, kc, vc, mask=None, attn_softcap: float = 0.0):
+    """qg (B,Hkv,g,1,dh) against cached k/v (B,Hkv,L,dh), under ``mask``
+    (L,) where one is given, in float32 -> (B,Hkv,g,1,dh)."""
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
+                     kc.float()) / (qg.shape[-1] ** 0.5)
+    if attn_softcap:
+        s = softcap(s, attn_softcap)
+    if mask is not None:
+        s = torch.where(mask, s, _NEG)
+    pgs = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bhkd->bhgqd", pgs, vc.float())
+
+
 def attn_decode(cfg: ModelConfig, p, x1: torch.Tensor, cache: dict, pos,
                 *, window: int = 0, attn_softcap: float = 0.0,
                 ring: bool = False) -> Tuple[torch.Tensor, dict]:
@@ -234,12 +259,9 @@ def attn_decode(cfg: ModelConfig, p, x1: torch.Tensor, cache: dict, pos,
         if window:
             mask &= (pos - k_pos) < window
     qg = q.reshape(b, hkv, g, 1, dh)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kc.float()) / (dh ** 0.5)
-    if attn_softcap:
-        s = softcap(s, attn_softcap)
-    s = torch.where(mask, s, _NEG)
-    pgs = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", pgs, vc.float())
+    out = per_device(functools.partial(attend_cache,
+                                       attn_softcap=attn_softcap),
+                     qg, kc, vc, mask, like=kc)
     out = out.reshape(b, h, 1, dh).transpose(1, 2).reshape(b, 1, -1)
     out = out.to(x1.dtype) @ p["wo"]
     return out, cache

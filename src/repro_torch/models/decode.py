@@ -26,14 +26,15 @@ port holds them in float32 too, a new leaf bound in place of the old one
 (``ROADMAP.md`` C.13, C.14).  The moe step skips the router's auxiliary
 losses, which the reference's jitted step computes and discards.  The
 layer profiler's sliced step covers the dense, moe, ssm and hybrid
-families, and refuses audio and vlm as the reference does;
-``cache_specs`` waits for the dry-run (item 20).
+families, and refuses audio and vlm as the reference does.
+:func:`cache_specs` gives each cache leaf's (shape, dtype) pair, a
+:class:`LeafSpec`, for the dry run.
 """
 from __future__ import annotations
 
 import functools
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,7 +43,7 @@ from . import attention as A
 from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
-from .common import embed, lm_logits, norm, sinusoid_pos
+from .common import embed, lm_logits, norm, per_device, sinusoid_pos
 from .config import ModelConfig
 from .mlp import mlp_block
 from .transformer import encode_audio, group_params
@@ -124,6 +125,19 @@ def _map_cache(cfg: ModelConfig, tree, fn):
     return walk(tree)
 
 
+class LeafSpec(NamedTuple):
+    """A cache leaf's shape and dtype (the reference's ShapeDtypeStruct)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """The cache tree of :class:`LeafSpec` (shape, dtype) pairs."""
+    return _map_cache(
+        cfg, cache_shapes(cfg, batch, max_len),
+        lambda key, s, par: LeafSpec(s, _cache_leaf_dtype(cfg, key, s, par)))
+
+
 def init_cache(cfg: ModelConfig, params, batch: int, max_len: int,
                modality: Optional[torch.Tensor] = None):
     """A zeroed cache on the device that holds ``params``; with a
@@ -167,9 +181,7 @@ def _cross_decode(cfg: ModelConfig, p, x1, kc, vc):
     if cfg.qkv_bias:
         q = q + p["bq"]
     qg = q.reshape(b, 1, h, dh).transpose(1, 2).reshape(b, hkv, g, 1, dh)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kc.float()) / (dh ** 0.5)
-    pgs = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", pgs, vc.float())
+    out = per_device(A.attend_cache, qg, kc, vc, like=kc)
     out = out.reshape(b, h, 1, dh).transpose(1, 2).reshape(b, 1, -1)
     return out.to(x1.dtype) @ p["wo"]
 

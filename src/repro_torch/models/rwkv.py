@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import full_f32
-from .common import constrain, layer_norm
+from .common import constrain, layer_norm, unshard
 from .config import ModelConfig
 from .ssm_ops import chunked_decay_scan, decay_scan_step
 
@@ -52,7 +52,7 @@ def _ddlerp(p, x: torch.Tensor, xx: torch.Tensor):
     delta = xx - x
     # shared low-rank adapter: (B,S,D) -> 5 x (B,S,D)
     mixed = x + delta * 0.5
-    low = torch.tanh(mixed @ p["mix_A"])
+    low = unshard(torch.tanh(mixed @ p["mix_A"]), -1)
     low = low.reshape(*low.shape[:-1], 5, -1)                 # (B,S,5,r)
     adj = torch.einsum("bsir,ird->bsid", low, p["mix_B"])     # (B,S,5,D)
     mu = p["mu"][None, None]                                  # (1,1,5,D)

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from ..device import full_f32
+from .common import on_mesh, per_device
 
 _NEG = -1e30
 
@@ -42,6 +43,13 @@ def chunked_decay_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns o (B,H,S,dv) in q's dtype, and the float32 state (B,H,dk,dv)
     after the last step when ``return_state``.
     """
+    if on_mesh(q):      # per device: independent over batch and heads
+        def scan(q, k, v, w, u, h0):
+            return chunked_decay_scan(q, k, v, w, u=u, chunk=chunk,
+                                      diag_mode=diag_mode, h0=h0,
+                                      return_state=return_state)
+        return per_device(scan, q, k, v, w, u, h0, like=q,
+                          remap={4: {1: 0}}, n_out=2 if return_state else 1)
     b, h, s, dk = q.shape
     dv = v.shape[-1]
     scalar_decay = w.ndim == 3
@@ -121,6 +129,11 @@ def decay_scan_step(hstate: torch.Tensor, q1, k1, v1, w1,
     Returns (o (B,H,dv), new state), both float32, whatever ``hstate``'s
     dtype (a bf16 state comes back float32, as in the reference).
     """
+    if on_mesh(hstate):
+        def step(hstate, q1, k1, v1, w1, u):
+            return decay_scan_step(hstate, q1, k1, v1, w1, u, diag_mode)
+        return per_device(step, hstate, q1, k1, v1, w1, u, like=hstate,
+                          remap={5: {1: 0}}, n_out=2)
     f32 = torch.float32
     q1, k1, v1, hstate = q1.to(f32), k1.to(f32), v1.to(f32), hstate.to(f32)
     if w1.ndim == 2:

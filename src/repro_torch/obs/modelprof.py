@@ -15,8 +15,9 @@ Three joined views per config:
   the reference's in stable mode);
 * **analytic** — :func:`analytic_op_costs`: a dot-FLOPs/bytes/arithmetic-
   intensity cost model per operator derived from ``ModelConfig``,
-  cross-checked against ``torch.utils.flop_counter.FlopCounterMode`` over
-  the port's decode step (:func:`crosscheck_flops`);
+  cross-checked against ``launch.op_analysis`` over the port's decode step
+  (:func:`crosscheck`: FLOPs within ``FLOPS_RTOL``, bytes within a factor
+  ``BYTES_FACTOR``, the reference's constants);
 * **joined** — layer records link to engine-step span events by step
   provenance (record prov ``("engine", "s<step>", "<op>[.g<G>]")`` extends
   span prov ``("engine", "s<step>")``); :func:`join_steps` /
@@ -38,9 +39,9 @@ n   ``dur_us`` — segment wall microseconds, stamped after the segment's
     device work finished; 0 in stable mode
 ==  =======================================================================
 
-The reference's roofline classes (``device_peaks``, ``roofline_class``,
-``offload_report``) read TPU peaks and wait for the H100's
-(``ROADMAP.md`` item 19).
+The roofline classes (:func:`device_peaks`, :func:`roofline_class`,
+:func:`offload_report`) are the reference's, over the H100's datasheet
+peaks of ``launch.op_stats``.
 """
 from __future__ import annotations
 
@@ -66,12 +67,16 @@ KIND = "layer"
 # drift stays visible.
 JOIN_COVERAGE_MIN = 0.05
 
-# analytic-vs-counted tolerance.  The analytic model counts exactly the dot
-# ops the decode step runs (the reference calibrated it against the HLO of
-# its step: rel err 0.0 on qwen2-0.5b reduced); here it is held against
-# ``torch.utils.flop_counter.FlopCounterMode``, which counts the same
-# products (``mm``, ``bmm``) of the port's step.
+# analytic-vs-counted tolerances, the reference's.  The analytic model
+# counts exactly the dot ops the decode step runs (the reference calibrated
+# it against the HLO of its step: rel err 0.0 on qwen2-0.5b reduced); here
+# it is held against ``launch.op_analysis``, which counts the same products
+# (``mm``, ``bmm``) of the port's step.  The bytes band is a factor wide:
+# the analytic model counts weights + state + activation I/O once (a
+# roofline denominator), the op counter every eager kernel's operands and
+# result.
 FLOPS_RTOL = 0.02
+BYTES_FACTOR = 5.0
 
 
 def layer_prov(step: int, op: str, group: int) -> Tuple[str, ...]:
@@ -453,31 +458,102 @@ def analytic_totals(cfg, batch: int, cache_len: int) -> Tuple[float, float]:
 # -- analytic-vs-counted cross-check -----------------------------------------
 
 
-def crosscheck_flops(cfg, batch: int, cache_len: int, device=None,
-                     flops_rtol: float = FLOPS_RTOL
-                     ) -> Tuple[Dict[str, float], List[str]]:
-    """Compare the analytic dot-FLOPs with ``FlopCounterMode``'s count over
-    one fused :func:`~repro_torch.models.decode.serve_step` at
-    (batch, cache_len), on ``device`` (``cuda`` unless named).  Returns
-    (report dict, violations)."""
+def crosscheck(cfg, batch: int, cache_len: int, device=None, params=None,
+               flops_rtol: float = FLOPS_RTOL,
+               bytes_factor: float = BYTES_FACTOR
+               ) -> Tuple[Dict[str, float], List[str]]:
+    """Compare the analytic model with ``launch.op_analysis``'s count of one
+    fused :func:`~repro_torch.models.decode.serve_step` at (batch,
+    cache_len) on ``device`` (``cuda`` unless named), with seed-0 weights
+    or ``params``.  Returns (report dict, violations)."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import op_analysis
     from repro_torch.models import decode
     from repro_torch.models import params as MP
-    params = MP.init_params(cfg, seed=0, device=device)
+    if params is None:
+        params = MP.init_params(cfg, seed=0, device=device)
     cache = decode.init_cache(cfg, params, batch, cache_len)
     toks = torch.zeros((batch, 1), dtype=torch.long,
                        device=params["embed"].device)
-    with FlopCounterMode(display=False) as counter:
-        decode.serve_step(cfg, params, cache, toks, 0)
-    counted = float(counter.get_total_flops())
-    a_flops, _ = analytic_totals(cfg, batch, cache_len)
-    rel = abs(a_flops - counted) / max(counted, 1.0)
-    report = {"analytic_flops": a_flops, "counted_flops": counted,
-              "flops_rel_err": rel}
+    counted = op_analysis.analyze(decode.serve_step, cfg, params, cache,
+                                  toks, 0)
+    a_flops, a_bytes = analytic_totals(cfg, batch, cache_len)
+    rel = abs(a_flops - counted.flops) / max(counted.flops, 1.0)
+    ratio = (a_bytes / counted.traffic_bytes if counted.traffic_bytes
+             else float("inf"))
+    report = {"analytic_flops": a_flops, "counted_flops": counted.flops,
+              "flops_rel_err": rel, "analytic_bytes": a_bytes,
+              "counted_bytes": counted.traffic_bytes, "bytes_ratio": ratio,
+              "collective_bytes": counted.total_collective_bytes}
     problems: List[str] = []
     if rel > flops_rtol:
         problems.append(
             f"{cfg.name}: analytic flops {a_flops:.3e} vs counted "
-            f"{counted:.3e} (rel err {rel:.3f} > {flops_rtol})")
+            f"{counted.flops:.3e} (rel err {rel:.3f} > {flops_rtol})")
+    if not (1.0 / bytes_factor <= ratio <= bytes_factor):
+        problems.append(
+            f"{cfg.name}: analytic bytes {a_bytes:.3e} vs counted "
+            f"{counted.traffic_bytes:.3e} (ratio {ratio:.2f} outside "
+            f"[1/{bytes_factor}, {bytes_factor}])")
     return report, problems
+
+
+# -- roofline classification + offload candidates ----------------------------
+
+
+def device_peaks() -> Tuple[float, float]:
+    """(peak FLOPs/s, HBM bytes/s) of the modeled accelerator: the H100's
+    datasheet figures (``launch.op_stats``)."""
+    from repro_torch.launch import op_stats
+    return float(op_stats.PEAK_FLOPS_BF16), float(op_stats.HBM_BW)
+
+
+def roofline_class(intensity: float,
+                   peaks: Optional[Tuple[float, float]] = None) -> str:
+    """``compute``- vs ``memory``-bound against the device ridge point."""
+    peak_flops, bw = peaks or device_peaks()
+    ridge = peak_flops / bw
+    return "compute" if intensity >= ridge else "memory"
+
+
+def offload_report(cfg, records: Sequence[LayerRecord],
+                   costs: Sequence[OpCost],
+                   peaks: Optional[Tuple[float, float]] = None
+                   ) -> List[Dict[str, Any]]:
+    """Ranked Calyx-lowering candidates: one row per operator *kind*,
+    ordered by measured share of decode-step time, annotated with the
+    analytic per-step FLOPs/bytes/intensity and roofline class.
+
+    ``costs`` should be the analytic costs at the *deployment* shape (the
+    full config / production cache length), while ``records`` carry the
+    measured walls — the measured ranking tells us where the step time
+    goes, the analytic columns tell us what an accelerator would have to
+    beat at scale.
+    """
+    shares = op_shares(records)
+    summary = summarize(records)
+    by_op: Dict[str, Dict[str, float]] = {}
+    for c in costs:
+        row = by_op.setdefault(c.op, {"flops": 0.0, "bytes": 0.0})
+        row["flops"] += c.flops
+        row["bytes"] += c.bytes_rw
+    rows: List[Dict[str, Any]] = []
+    for op, share in shares.items():
+        cost = by_op.get(op, {"flops": 0.0, "bytes": 0.0})
+        intensity = (cost["flops"] / cost["bytes"]
+                     if cost["bytes"] else 0.0)
+        wall = sum(s.wall_us for (o, _), s in summary.items() if o == op)
+        calls = sum(s.calls for (o, _), s in summary.items() if o == op)
+        rows.append({
+            "op": op,
+            "share": round(share, 4),
+            "wall_us_mean": round(wall / calls, 1) if calls else 0.0,
+            "flops_per_step": cost["flops"],
+            "bytes_per_step": cost["bytes"],
+            "intensity": round(intensity, 3),
+            "bound": roofline_class(intensity, peaks),
+        })
+    rows.sort(key=lambda r: -r["share"])
+    for rank, r in enumerate(rows, 1):
+        r["rank"] = rank
+    return rows

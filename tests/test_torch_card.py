@@ -1,6 +1,7 @@
 """The port on the card (``-m cuda``; these tests skip without one): its CUDA
-kernels, the serve step of the decode path, and a train step with its
-checkpoint.
+kernels, the serve step of the decode path, a train step with its
+checkpoint, the dry run of a reduced cell and the op counter's exact mesh
+counts with fake CUDA tensors.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card.py
 
@@ -339,3 +340,52 @@ def test_train_step_on_the_card_matches_the_cpu(tmp_path):
     for a, b in zip(adamw.leaves(back["params"]) + adamw.leaves(back["opt"].v),
                     adamw.leaves(card["params"]) + adamw.leaves(card["opt"].v)):
         assert a.device.type == "cpu" and torch.equal(a, b.cpu())
+
+
+_DRY_RUN = r"""
+import json, pathlib, sys
+from repro_torch.launch import dryrun, mesh as ME
+ME.fake_group(4)
+rec = dryrun.run_cell("olmoe-1b-7b", "decode_32k", False,
+                      pathlib.Path(sys.argv[1]), force=True, device="cuda",
+                      reduced=True, mesh_shape=(2, 2))
+ME.release()
+print(json.dumps(rec))
+"""
+
+
+@pytest.mark.cuda
+def test_dry_run_of_a_reduced_cell_on_the_card(tmp_path):
+    """The dry run's ``run_cell`` with ``device="cuda"`` (fake CUDA tensors
+    over a fake process group, in a process of its own) on a reduced cell
+    of a small mesh: ``ok``, with counted FLOPs and collectives."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    _card()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run(
+        [sys.executable, "-c", _DRY_RUN, str(tmp_path)],
+        capture_output=True, text=True, timeout=600, cwd=str(root),
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert r.returncode == 0, r.stderr[-2000:]
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rec["status"] == "ok" and rec["chips"] == 4, rec.get("traceback")
+    assert rec["mesh"] == "mesh2x2"
+    assert rec["hlo_cost"]["flops"] > 0
+    assert rec["collectives"]["count_by_kind"]["all-reduce"] > 0
+
+
+@pytest.mark.cuda
+def test_op_counts_on_a_fake_cuda_mesh():
+    """The op counter's exact mesh counts of ``test_torch_op_analysis.py``
+    (a product sharded over 16x16 at 2·M·N·K / 256 a device, DTensor's
+    global-shape run not counted; a sum over 8 ranks) with fake CUDA tensors
+    under the card's torch."""
+    import torch_mesh_counts
+    _card()
+    out = torch_mesh_counts.counts("cuda")
+    torch_mesh_counts.check_product(out)
+    torch_mesh_counts.check_sum(out)

@@ -358,17 +358,18 @@ def test_profile_ops_match_reference():
                                             ("olmoe-1b-7b", 32),
                                             ("granite-moe-1b-a400m", 32)])
 def test_analytic_costs_and_flop_counter(name, cache_len):
-    """The analytic cost model equals the reference's, and its summed
-    dot-FLOPs agree with FlopCounterMode over the port's serve step within
-    the reference's FLOPS_RTOL.  gemma2 at a cache no longer than its window
+    """The analytic cost model equals the reference's, and ``crosscheck``
+    holds it against the op counter over the port's serve step: summed
+    dot-FLOPs within the reference's FLOPS_RTOL, bytes within its
+    BYTES_FACTOR.  gemma2 at a cache no longer than its window
     of 16: the model counts a local layer's scores over the whole cache,
     while its ring holds only the window (at 32: 2.3% over)."""
     cfg, rcfg = get_config(name).reduced(), ref_config(name).reduced()
     assert MPF.analytic_op_costs(cfg, 2, cache_len) \
         == [MPF.OpCost(c.op, c.group, c.flops, c.bytes_rw)
             for c in RMPF.analytic_op_costs(rcfg, 2, cache_len)]
-    report, problems = MPF.crosscheck_flops(cfg, batch=2, cache_len=cache_len,
-                                            device="cpu")
+    report, problems = MPF.crosscheck(cfg, batch=2, cache_len=cache_len,
+                                      device="cpu")
     assert problems == [], report
     assert report["flops_rel_err"] <= MPF.FLOPS_RTOL == RMPF.FLOPS_RTOL
     assert report["counted_flops"] > 0

@@ -117,3 +117,97 @@ def test_batched_driver_needs_a_card_by_default(drivers):
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError):
         drivers[1].main(["--requests", "1", "--gen", "1", "--prompt-len", "1"])
+
+
+# == the compiler example twins ==============================================
+
+ORACLE_TOL = 1e-4            # tests/test_core_sim.py: design vs oracle
+
+
+@pytest.fixture(scope="module")
+def compilers():
+    return _load("compile_to_calyx"), _load("compile_to_calyx_torch")
+
+
+def _compile(compilers, monkeypatch, capsys, args, tmp_path):
+    """(reference stdout, port stdout), each with its own output paths
+    (``ref.*`` and ``port.*`` under ``tmp_path``) written as ``OUT``."""
+    ref, port = compilers
+    outs = {}
+    for side in ("ref", "port"):
+        side_args = [a.replace("OUT", str(tmp_path / side)) for a in args]
+        capsys.readouterr()
+        if side == "ref":
+            monkeypatch.setattr("sys.argv", ["compile_to_calyx", *side_args])
+            ref.main()
+        else:
+            port.main(["--device", "cpu", *side_args])
+        outs[side] = capsys.readouterr().out.replace(str(tmp_path / side),
+                                                     "OUT")
+    return outs["ref"], outs["port"]
+
+
+def _oracle_errors(out):
+    """The ``max|out - oracle|`` figures, and the text with them blanked."""
+    import re
+    pat = re.compile(r"max\|out - oracle\|=([0-9.e+-]+)")
+    return [float(v) for v in pat.findall(out)], pat.sub("max|out - oracle|=", out)
+
+
+@pytest.mark.parametrize("args", [
+    ["--model", "ffnn", "--factor", "2", "--out", "OUT.futil", "--simulate",
+     "--emit-verilog", "OUT.sv", "--simulate-rtl", "--trace", "OUT.jsonl",
+     "--vcd", "OUT.vcd"],
+    ["--model", "ffnn", "--factor", "2", "--mode", "branchy", "--out",
+     "OUT.futil", "--emit-verilog", "OUT.sv", "--simulate"],
+    ["--model", "ffnn", "--factor", "4", "--opt-level", "2", "--profile",
+     "--out", "OUT.futil"],
+    ["--model", "ffnn", "--factor", "4", "--no-share", "--no-verify",
+     "--opt-level", "1", "--out", "OUT.futil"],
+    ["--model", "mha", "--factor", "2", "--out", "OUT.futil"],
+], ids=["ffnn-f2-rtl-trace", "ffnn-f2-branchy", "ffnn-f4-o2-profile",
+        "ffnn-f4-noshare-o1", "mha-f2"])
+def test_compile_to_calyx_matches_reference(compilers, monkeypatch, capsys,
+                                            tmp_path, args):
+    """Every printed line is the reference's but the oracle's error (torch
+    in place of jnp), which both hold under the design tolerance; the
+    .futil, .sv, trace and VCD files are the reference's byte for byte."""
+    want, got = _compile(compilers, monkeypatch, capsys, args, tmp_path)
+    want_err, want_text = _oracle_errors(want)
+    got_err, got_text = _oracle_errors(got)
+    assert got_text == want_text
+    assert len(got_err) == len(want_err)
+    assert all(e < ORACLE_TOL for e in got_err + want_err), (got_err, want_err)
+    if "--simulate" in args or "--simulate-rtl" in args:
+        assert "matches estimate" in got and "MISMATCH" not in got
+    for ext in ("futil", "sv", "jsonl", "vcd"):
+        ref_file = tmp_path / f"ref.{ext}"
+        if ref_file.exists():
+            assert (tmp_path / f"port.{ext}").read_bytes() == \
+                ref_file.read_bytes(), ext
+
+
+def test_compile_to_calyx_keeps_the_bank_conflict(compilers, monkeypatch,
+                                                  tmp_path):
+    """MHA at factor 4 raises ``BankConflictError`` in both (C.5)."""
+    from repro.core.banking import BankConflictError as RefConflict
+    from repro_torch.core import BankConflictError
+    ref, port = compilers
+    args = ["--model", "mha", "--factor", "4", "--out",
+            str(tmp_path / "mha.futil")]
+    monkeypatch.setattr("sys.argv", ["compile_to_calyx", *args])
+    with pytest.raises(RefConflict) as want:
+        ref.main()
+    with pytest.raises(BankConflictError) as got:
+        port.main(["--device", "cpu", *args])
+    assert str(got.value) == str(want.value)
+
+
+def test_banking_sweep_matches_reference(monkeypatch, capsys):
+    ref, port = _load("banking_sweep"), _load("banking_sweep_torch")
+    capsys.readouterr()
+    ref.main()
+    want = capsys.readouterr().out
+    port.main()
+    assert capsys.readouterr().out == want
+    assert "speedup 1->2" in want

@@ -1,6 +1,7 @@
 """The port stands alone: importing it, or its drivers
-(``examples/serve_batched_torch.py``, ``examples/train_lm_torch.py``), loads
-neither JAX nor ``repro``."""
+(``examples/serve_batched_torch.py``, ``examples/train_lm_torch.py``,
+``examples/compile_to_calyx_torch.py``, ``examples/banking_sweep_torch.py``),
+loads neither JAX nor ``repro``."""
 import json
 import os
 import pathlib
@@ -35,8 +36,13 @@ import repro_torch.data.pipeline, repro_torch.optim.adamw
 import repro_torch.optim.compression, repro_torch.checkpoint.manager
 import repro_torch.runtime.trainer, repro_torch.launch.steps
 import repro_torch.launch.train
+import repro_torch.sharding, repro_torch.sharding.rules
+import repro_torch.launch.mesh, repro_torch.launch.shapes
+import repro_torch.launch.dryrun, repro_torch.launch.op_analysis
+import repro_torch.launch.op_stats
 import importlib.util
-for name in ("serve_batched_torch", "train_lm_torch"):
+for name in ("serve_batched_torch", "train_lm_torch", "compile_to_calyx_torch",
+             "banking_sweep_torch"):
     spec = importlib.util.spec_from_file_location(name, f"examples/{name}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 repro_torch.models.all_names()          # imports the ten config modules

@@ -453,12 +453,16 @@ def test_train_cli_on_the_cpu(tmp_path, capsys, monkeypatch):
         "step_00000003", "step_00000006"]
 
 
-def test_train_cli_refuses_without_a_card_and_on_dry_run(capsys):
-    with pytest.raises(SystemExit) as e:
-        train_cli.main(["--arch", "qwen2-0.5b", "--dry-run"])
-    assert e.value.code != 0
-    assert "item 20" in capsys.readouterr().err
+def test_train_cli_refuses_without_a_card_and_on_dry_run(capfd):
+    """Without a card the CLI raises, and ``--dry-run`` delegates to the dry
+    run (``--device cuda`` unless named), which exits non-zero there rather
+    than running on the CPU; ``tests/test_torch_dryrun.py`` holds the
+    delegated command."""
     if not torch.cuda.is_available():
+        with pytest.raises(SystemExit) as e:
+            train_cli.main(["--arch", "qwen2-0.5b", "--dry-run"])
+        assert e.value.code != 0
+        assert "no CUDA device" in capfd.readouterr().err
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "1"])
 
