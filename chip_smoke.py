@@ -146,7 +146,25 @@ toolkit.  Phases:
    ffnn --factor 2 --simulate-rtl`` prints ``matches estimate`` and an
    oracle error (the torch oracle on the card) under 1e-4;
    ``examples/banking_sweep_torch.py``, a check on the host, prints the
-   sweep; one JSON ``compiler_examples`` line.
+   sweep; one JSON ``compiler_examples`` line;
+13. ``bench profile`` (after qwen2-0.5b's ``op analysis``): the first 32
+   engine steps of the serve twin's ``full`` and ``full_wide`` replays on
+   qwen2-0.5b's registered bf16 weights, profiled; one JSON
+   ``bench_profile`` line (device ms and busy share a step);
+14. ``bench`` (after the last serve phase, before training):
+   ``benchmarks/run_torch.py serve_bench resilience_bench kernel_bench
+   model_profile_bench roofline_report --device cuda`` in a process of its
+   own, 2 repeats, its records in ``build/chip_smoke_bench`` (kept), then
+   ``scripts/check_perf_regression.py`` with ``--serve-new``,
+   ``--resilience-new`` and ``--model-new`` on them, no baseline: the
+   contract checks; one JSON ``bench`` line a twin, the serve line with the
+   ``full`` and ``full_wide`` records and ``bench profile``'s device time.
+
+Every device time from ``torch.profiler`` comes from windows checked against
+CUDA events over the same calls (``_window_trusted``): a window whose
+device time exceeds them, or, for a device-bound call, falls short of the
+calls' CUDA-event time less the host's enqueue cost by more than 5%, is
+refused and retried (ROADMAP.md C.21).
 
 Prints one JSON ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a card, outside a checkout of
@@ -249,51 +267,127 @@ def _device_events(prof, counts: Optional[dict] = None) -> dict:
     return device
 
 
-def _device_profile(fn, iters: int = 20):
-    """(mean device time of one call, {device kernel: mean ms a call},
-    costliest first): the kernels and copies on the card, from
-    ``torch.profiler``.  At the main path's shapes a call is far shorter
-    than its launch from Python, which CUDA events also count.
+# A profiler window is trusted only where its device time agrees with CUDA
+# events (ROADMAP.md C.21).  On one stream a call's kernels run one after
+# another inside the events that bracket them, so the device time a call can
+# exceed the events' time of the same calls only by the two clocks' rounding
+# (EVENT_SLACK of it, and a microsecond).  Where a call is device-bound (its
+# CUDA-event time DEVICE_BOUND times the host's enqueue cost or more), the
+# card runs it back to back and idles at most the host's cost a call, so its
+# device time is at least the CUDA-event time less that cost; WINDOW_MARGIN
+# allows for the spread of one kernel's time between windows and calls,
+# which stayed within 1.5% across the kernel rows PERF.md §6 records, and is
+# a tenth of the 52% drop of the window C.21 found.
+EVENT_SLACK = 0.01
+DEVICE_BOUND = 4.0
+WINDOW_MARGIN = 0.05
+
+
+def _window_trusted(device_ms: float, event_ms: float, call_ms: float,
+                    host_ms: float) -> Optional[str]:
+    """None where a profiler window's device time a call can be trusted,
+    else why not.  ``device_ms``: the window's device time a call;
+    ``event_ms``: CUDA events around the window's own calls, a call;
+    ``call_ms``: CUDA events over back-to-back calls outside the profiler, a
+    call; ``host_ms``: the host's enqueue cost a call."""
+    if device_ms > event_ms * (1 + EVENT_SLACK) + 1e-3:
+        return (f"device {device_ms:.4g} ms a call exceeds the {event_ms:.4g} "
+                f"ms of CUDA events around the same calls")
+    floor = (call_ms - host_ms) * (1 - WINDOW_MARGIN)
+    if call_ms >= DEVICE_BOUND * host_ms and device_ms < floor:
+        return (f"device {device_ms:.4g} ms a call, under {floor:.4g} ms: a "
+                f"device-bound call of {call_ms:.4g} ms (CUDA events) less its "
+                f"{host_ms:.4g} ms of host cost, less {WINDOW_MARGIN:.0%}")
+    return None
+
+
+def _call_and_host_ms(fn, n: int):
+    """(CUDA-event ms, host enqueue ms) a call over ``n`` back-to-back calls
+    outside the profiler: the host's clock stops when the last call returns,
+    before the card is waited for."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, host
+
+
+def _profile_windows(fn, iters: int = 20, min_calls: int = 2) -> dict:
+    """The device time of one call of ``fn`` from ``torch.profiler``
+    windows, checked against CUDA events: ``device_ms`` (a call),
+    ``by_kernel`` ({device kernel: mean ms a call}, costliest first),
+    ``call_ms`` and ``host_ms`` (CUDA events and the host's enqueue cost a
+    call, outside the profiler), ``refused`` (why each refused window was).
 
     The profiler may drop a window's events (it kept 19 of 20 calls' tiny
     kernels in most windows of one run, none of two calls' in another, and
-    none of one plain scan call's first fill), so a window is at least two
-    calls, a kernel's time a call is its mean over the events kept, times
-    its events a call, and a window counts only when it holds every kernel
-    any window of the same calls held: two windows that kept events at
-    least, more when they differ, five windows at most, and then the call
-    fails.  An empty window is the profiler's (the first of a process often
-    is), not the call's."""
+    none of one plain scan call's first fill), so a window is at least
+    ``min_calls`` calls (two, but for a call of hundreds of steps), a
+    kernel's time a call is its mean over the events kept, times its events
+    a call, and a window counts only when it holds every kernel any window
+    of the same calls held and ``_window_trusted`` accepts its device time
+    against CUDA events (the window's own, and the calls' time and host
+    cost outside the profiler): two windows that kept events at least, more
+    when they differ or one is refused, five windows at most, and then the
+    call fails.  An empty window is the profiler's (the first of a process
+    often is), not the call's."""
     from torch.profiler import ProfilerActivity, profile
+    n = max(min_calls, iters)
 
-    def window(n: int):
+    def window():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
             for _ in range(n):
                 fn()
+            end.record()
             torch.cuda.synchronize()
         counts = {}
-        return _device_events(prof, counts), counts
+        events = _device_events(prof, counts)
+        by_kernel = {k: ms / counts[k] * max(1, round(counts[k] / n))
+                     for k, ms in sorted(events.items(), key=lambda kv: -kv[1])}
+        return by_kernel, start.elapsed_time(end) / n
 
     fn()
-    n = max(2, iters)
-    windows, seen, full = [], set(), []
+    call_ms, host_ms = _call_and_host_ms(fn, n)
+    kept, seen, refused = [], set(), []
     for _ in range(5):
-        events, counts = window(n)
-        if not events:
+        by_kernel, event_ms = window()
+        if not by_kernel:
             continue
-        windows.append((events, counts))
-        seen |= set(events)
-        full = [w for w in windows if set(w[0]) == seen]
-        if len(windows) >= 2 and full:
+        seen |= set(by_kernel)
+        why = _window_trusted(sum(by_kernel.values()), event_ms, call_ms, host_ms)
+        if why is None:
+            kept.append(by_kernel)
+        else:
+            refused.append(why)
+            print(f"  profiler window refused: {why}", flush=True)
+        full = [w for w in kept if set(w) == seen]
+        if len(kept) + len(refused) >= 2 and full:
             break
-    _check(len(windows) >= 2 and bool(full),
-           f"five profiler windows of {n} calls: {len(windows)} kept events, "
-           f"none of them every kernel of {sorted(seen)}")
-    events, counts = full[-1]
-    by_kernel = {k: ms / counts[k] * max(1, round(counts[k] / n))
-                 for k, ms in sorted(events.items(), key=lambda kv: -kv[1])}
-    return sum(by_kernel.values()), by_kernel
+    full = [w for w in kept if set(w) == seen]
+    _check(bool(full), f"five profiler windows of {n} calls: {len(kept)} trusted "
+                       f"(refused: {refused}), none of them every kernel of "
+                       f"{sorted(seen)}")
+    return {"device_ms": sum(full[-1].values()), "by_kernel": full[-1],
+            "call_ms": call_ms, "host_ms": host_ms, "refused": refused}
+
+
+def _device_profile(fn, iters: int = 20):
+    """(mean device time of one call, {device kernel: mean ms a call},
+    costliest first), from trusted profiler windows (``_profile_windows``).
+    At the main path's shapes a call is far shorter than its launch from
+    Python, which CUDA events also count."""
+    w = _profile_windows(fn, iters)
+    return w["device_ms"], w["by_kernel"]
 
 
 def _device_ms(fn, iters: int = 20) -> float:
@@ -1830,6 +1924,162 @@ def phase_compiler_examples() -> dict:
     return row
 
 
+# -- the benchmark twins -------------------------------------------------------
+
+BENCH_OUT = ROOT / "build" / "chip_smoke_bench"       # ignored by git
+BENCH_SECTIONS = ("serve_bench", "resilience_bench", "kernel_bench",
+                  "model_profile_bench", "roofline_report")
+BENCH_TIMEOUT = 420
+BENCH_REPEATS = "2"
+BENCH_FULL = ("full", "full_wide")       # serve_bench_torch's full-width profiles
+BENCH_PROFILED_TICKS = 32
+# the twins' records and the gate's flag for each
+BENCH_FILES = {"serve": ("BENCH_serve_torch.json", "SERVE_BENCH_OUT", "--serve-new"),
+               "resilience": ("BENCH_resilience_torch.json", "RESILIENCE_BENCH_OUT",
+                              "--resilience-new"),
+               "model": ("BENCH_model_torch.json", "MODEL_BENCH_OUT", "--model-new")}
+
+
+def _serve_twin():
+    """``benchmarks/serve_bench_torch.py``, imported as the runner imports it."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(1, str(ROOT))
+    from benchmarks import serve_bench_torch
+    return serve_bench_torch
+
+
+def phase_bench_profile(sp: ServePath) -> dict:
+    """The device time of the serve twin's full-width profiles (``full``,
+    ``full_wide``) on qwen2-0.5b's registered bf16 weights: the first
+    ``BENCH_PROFILED_TICKS`` engine steps of each profile's replay (the
+    arrivals, admissions and the slots filling, then full), from a fresh
+    engine at every call, read by ``_profile_windows`` against CUDA events
+    (C.21); the device ms and busy share a step for the ``bench`` line.  A
+    whole replay is 138-255 steps of ~1,800 device events, which the
+    profiler takes minutes to process."""
+    SB = _serve_twin()
+    rows = {}
+    for name in BENCH_FULL:
+        prof = SB.PROFILES[name]
+        cfg = SB.point_config(prof["arch"], name)
+        _check(prof["arch"] == sp.arch and cfg == sp.cfg
+               and sp.prm["embed"].dtype == getattr(torch, cfg.dtype),
+               f"{name}: the served weights are not {prof['arch']}'s registered "
+               f"{cfg.dtype} config")
+        trace = SB.profile_trace(prof)
+
+        def replay():
+            drv = SB.make_driver(cfg, sp.prm, prof, trace, SB.SEED, CARD)
+            for _ in range(BENCH_PROFILED_TICKS):
+                _check(drv.tick(), f"{name}: the replay ended within "
+                                   f"{BENCH_PROFILED_TICKS} steps")
+        w = _profile_windows(replay, iters=1, min_calls=1)
+        n = BENCH_PROFILED_TICKS
+        rows[name] = {"profiled_steps": n, "device_ms_per_step": w["device_ms"] / n,
+                      "wall_ms_per_step": w["call_ms"] / n,
+                      "device_busy_share": w["device_ms"] / w["call_ms"],
+                      "host_enqueue_ms_per_step": w["host_ms"] / n,
+                      "windows_refused": len(w["refused"]),
+                      "device_kernels_top": {k[:60]: v / n for k, v in
+                                             list(w["by_kernel"].items())[:5]}}
+    print(json.dumps({"bench_profile": {**rows, "card": _card_name_and_limit()}}))
+    return rows
+
+
+def _gate(flag: str, path: Path):
+    return subprocess.run([sys.executable, str(ROOT / "scripts" / "check_perf_regression.py"),
+                           flag, str(path)], capture_output=True, text=True, timeout=120,
+                          cwd=str(ROOT))
+
+
+def phase_bench(profiled: Optional[dict]) -> List[dict]:
+    """``benchmarks/run_torch.py`` over the five twins on the card, in a
+    process of its own (2 repeats; the records under ``build/chip_smoke_bench``
+    through the twins' ``*_OUT`` overrides), then
+    ``scripts/check_perf_regression.py`` on each record file with no
+    baseline: the contract checks (trace, resilience and record overheads
+    under 5%, deterministic streams, every request completed, goodput at
+    least 0.90, no request lost, the analytic cross-check).  One ``bench``
+    line a twin; the serve line carries the ``full`` and ``full_wide``
+    records with the device time of ``phase_bench_profile``."""
+    import shutil
+    shutil.rmtree(BENCH_OUT, ignore_errors=True)
+    BENCH_OUT.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)]),
+           "SERVE_BENCH_REPEATS": BENCH_REPEATS, "MODEL_BENCH_REPEATS": BENCH_REPEATS}
+    for fname, var, _ in BENCH_FILES.values():
+        env[var] = str(BENCH_OUT / fname)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "benchmarks" / "run_torch.py"),
+                        *BENCH_SECTIONS, "--device", CARD], capture_output=True,
+                       text=True, timeout=BENCH_TIMEOUT, cwd=str(ROOT), env=env)
+    run_s = time.perf_counter() - t0
+    (BENCH_OUT / "run.log").write_text(r.stdout + r.stderr)
+    print("\n".join("  " + line for line in r.stdout.splitlines()))
+    _check(r.returncode == 0, f"run_torch.py exited {r.returncode}: {r.stderr[-1500:]}")
+    csv = {}
+    for line in r.stdout.splitlines():
+        parts = line.split(",", 2)
+        if len(parts) == 3 and not line.startswith("#"):
+            csv[parts[0]] = (float(parts[1]), parts[2])
+    card, rows, failed = _card_name_and_limit(), [], []
+    for twin, (fname, _, flag) in BENCH_FILES.items():
+        data = json.loads((BENCH_OUT / fname).read_text())
+        gate = _gate(flag, BENCH_OUT / fname)
+        (BENCH_OUT / f"gate_{twin}.log").write_text(gate.stdout + gate.stderr)
+        fails = [ln for ln in gate.stdout.splitlines() if ln.startswith("FAIL:")]
+        row = {"twin": twin, "records": len(data["records"]),
+               "gate": "ok" if gate.returncode == 0 else "FAIL", "gate_failures": fails,
+               "device": data["device"]}
+        recs = data["records"]
+        if twin == "serve":
+            row["overhead"] = {f"{r['arch']}/{r['profile']}": r["trace_overhead"]
+                               for r in recs}
+            for rec in recs:
+                if rec["profile"] not in BENCH_FULL:
+                    continue
+                full = {k: rec[k] for k in ("requests", "completed", "slots", "steps",
+                                            "max_len", "tokens_per_sec",
+                                            "tick_median_off_us", "slot_utilization",
+                                            "trace_overhead", "deterministic")}
+                full.update(ttft_us_p99=rec["ttft_us"]["p99"],
+                            decode_tok_us_p50=rec["decode_tok_us"]["p50"])
+                full.update((profiled or {}).get(rec["profile"], {}))
+                row[rec["profile"]] = full
+                _check(rec["completed"] == rec["requests"],
+                       f"serve {rec['profile']}: {rec['completed']}/{rec['requests']} "
+                       f"requests completed")
+            _check(all(p in row for p in BENCH_FULL), "serve: no full-width records")
+        elif twin == "resilience":
+            row["overhead"] = {r["profile"]: r["resilience_overhead"] for r in recs
+                               if r["campaign"] == "zero_fault"}
+            row["goodput_min"] = min(r["goodput"] for r in recs if "goodput" in r)
+            row["lost"] = sum(r.get("lost", 0) for r in recs)
+        else:
+            row["overhead"] = {r["arch"]: r["record_overhead"] for r in recs}
+            row["flops_rel_err"] = {r["arch"]: r["crosscheck"]["flops_rel_err"]
+                                    for r in recs}
+            row["device_peaks"] = data["device_peaks"]
+        print(json.dumps({"bench": {**row, "card": card}}))
+        rows.append(row)
+        if gate.returncode != 0:
+            failed.append(f"{twin}: {fails}")
+    kernel = {k: v[0] for k, v in csv.items() if k.startswith("kernel_")}
+    roof = [k for k in csv if k.startswith("roofline_")]
+    for twin, lines in (("kernel", kernel), ("roofline", roof)):
+        row = {"twin": twin, "lines": len(lines), "gate": "ok" if lines else "FAIL",
+               "gate_by": "the section's own holds (run_torch.py exit 0)"}
+        if twin == "kernel":
+            row["us_per_call"] = kernel
+        print(json.dumps({"bench": {**row, "card": card}}))
+        rows.append(row)
+    print(json.dumps({"bench_run": {"run_s": run_s, "repeats": int(BENCH_REPEATS),
+                                    "out": str(BENCH_OUT.relative_to(ROOT))}}))
+    _check(kernel and roof, "the kernel or roofline section printed no line")
+    _check(not failed, f"the contract gate failed: {failed}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1935,6 +2185,7 @@ def main() -> int:
             run(f"{arch} serve", lambda: phase_serve(sp))
             if arch == ANALYSIS_ARCH:
                 run("op analysis", lambda: phase_op_analysis(sp))
+                run("bench profile", lambda: phase_bench_profile(sp))
             run(f"{arch} serve chaos", lambda: phase_serve_chaos(sp))
             # free the weights on the card: the cached sliced step holds
             # views, and the checked engine and its step wrapper form a cycle
@@ -1942,6 +2193,7 @@ def main() -> int:
             del sp
             gc.collect()
             torch.cuda.empty_cache()
+        run("bench", lambda: phase_bench(results.get("bench profile")))
         run_train_and_tools(run, results, counters)
     finally:
         if dryrun is not None:

@@ -159,6 +159,31 @@ def test_serve_step_on_the_card_matches_the_cpu(kv):
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-5, atol=1e-5 * scale)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_finite_screen_graph_on_the_card(dtype):
+    """The engine's finite screen on the card replays a CUDA graph captured
+    at the logits' first shape; each replay reads the logits it is given
+    (a NaN, a +inf, a -inf, a tie), as ``_screen`` does eagerly."""
+    _card()
+    from repro_torch.launch import serve as SV
+    rng = np.random.default_rng(5)
+    for rep in range(3):
+        last = torch.tensor(rng.normal(size=(6, 300)), dtype=torch.float32,
+                            device="cuda").to(dtype)
+        bad = [(1, 7 + rep, float("nan")), (2, 9, float("inf")),
+               (3, 11 + rep, float("-inf"))]
+        for row, col, val in bad[:rep + 1]:
+            last[row, col] = val
+        last[5, 200] = last[5, 3] = last[5].max() + 1
+        nxt, finite = SV._guarded_argmax(last[:, :])
+        want_nxt, want_finite = SV._screen(last).cpu().numpy()
+        assert finite.tolist() == want_finite.astype(bool).tolist()
+        assert finite.tolist() == [i not in [b[0] for b in bad[:rep + 1]]
+                                   for i in range(6)]
+        assert nxt[finite].tolist() == want_nxt[finite].tolist() and nxt[5] == 3
+
+
 @pytest.mark.parametrize("table", ["matmul", "attention", "decay_scan", "conv2d"])
 def test_check_tables_hold_on_the_cpu(table):
     """The shared check tables are well formed: on CPU tensors every wrapper

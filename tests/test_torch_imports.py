@@ -1,7 +1,8 @@
 """The port stands alone: importing it, or its drivers
 (``examples/serve_batched_torch.py``, ``examples/train_lm_torch.py``,
-``examples/compile_to_calyx_torch.py``, ``examples/banking_sweep_torch.py``),
-loads neither JAX nor ``repro``."""
+``examples/compile_to_calyx_torch.py``, ``examples/banking_sweep_torch.py``,
+the benchmark twins ``benchmarks/*_torch.py`` and their runner
+``benchmarks/run_torch.py``), loads neither JAX nor ``repro``."""
 import json
 import os
 import pathlib
@@ -15,7 +16,7 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _PROBE = """
-import json, sys
+import importlib, json, sys
 import repro_torch, repro_torch.core, repro_torch.core.cuda_backend
 import repro_torch.kernels.ops, repro_torch.kernels.banked_matmul
 import repro_torch.kernels.flash_attention, repro_torch.kernels.ssm_scan
@@ -45,6 +46,17 @@ for name in ("serve_batched_torch", "train_lm_torch", "compile_to_calyx_torch",
              "banking_sweep_torch"):
     spec = importlib.util.spec_from_file_location(name, f"examples/{name}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name in ("torch_device", "serve_bench_torch", "resilience_bench_torch",
+             "model_profile_bench_torch", "roofline_report_torch",
+             "kernel_bench_torch", "run_torch"):
+    spec = importlib.util.spec_from_file_location(
+        f"benchmarks.{name}", f"benchmarks/{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+import benchmarks.run_torch as runner
+for section in runner.SECTIONS:         # the modules the runner loads
+    importlib.import_module(f"benchmarks.{section}_torch")
 repro_torch.models.all_names()          # imports the ten config modules
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
@@ -53,7 +65,7 @@ print(json.dumps(sorted(m for m in sys.modules
 
 
 def test_port_imports_neither_jax_nor_repro():
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"}
     r = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                        text=True, env=env, cwd=str(ROOT), timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]

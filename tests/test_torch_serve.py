@@ -922,3 +922,23 @@ def test_jax_free_modules_are_verbatim_copies(path):
     """(``obs/__init__.py`` differs only in its docstring.)"""
     assert (ROOT / "src/repro_torch" / path).read_bytes() \
         == (ROOT / "src/repro" / path).read_bytes()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_finite_screen_host_and_card_forms_agree(dtype):
+    """The guard's CPU form (numpy over the host logits) and ``_screen``, the
+    form its CUDA graph captures, give the same tokens and finite flags: a
+    NaN, a +inf, a -inf and a tie, in float32 and bfloat16."""
+    rng = np.random.default_rng(3)
+    last = torch.tensor(rng.normal(size=(6, 300)), dtype=torch.float32).to(dtype)
+    last[1, 7] = float("nan")
+    last[2, 9] = float("inf")
+    last[3, 11] = float("-inf")
+    last[4, 0], last[4, 5] = float("nan"), float("-inf")
+    last[5, 200] = last[5, 3] = last[5].max() + 1
+    nxt, finite = SV._guarded_argmax(last)
+    want_nxt, want_finite = SV._screen(last).numpy()
+    assert finite.tolist() == want_finite.astype(bool).tolist() == \
+        [True, False, False, False, False, True]
+    assert nxt[finite].tolist() == want_nxt[finite].tolist()
+    assert nxt[5] == 3 and nxt.dtype == np.int32
