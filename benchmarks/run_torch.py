@@ -2,8 +2,12 @@
 
 The twin of ``benchmarks/run.py``: the same ``name,us_per_call,derived``
 CSV, failure summary and exit code.  Sections, in the order they run by
-default:
+default (``run.py``'s):
 
+  paper_tables         Fig 2 / Table 1 / Fig 3 / Table 2 reproduction
+  banking_ablation     layout-vs-branchy, restructuring, port model, sharing,
+                       MoE dispatch census on the device
+  calyx_bench          simulator/estimator differential -> BENCH_calyx_torch.json
   serve_bench          serving load harness -> BENCH_serve_torch.json
   resilience_bench     chaos/goodput harness -> BENCH_resilience_torch.json
   kernel_bench         the Hopper kernels against their plain versions
@@ -11,9 +15,8 @@ default:
   roofline_report      offload ranking from BENCH_model_torch.json
                        (+ the port's dry-run cells)
 
-``--device`` (default ``cuda``) is passed to every section.  A section of
-``run.py`` that has no twin yet (``paper_tables``, ``banking_ablation``,
-``calyx_bench``: ``ROADMAP.md`` A.4) fails with ``ValueError``.
+``--device`` (default ``cuda``) is passed to every section;
+``paper_tables`` compiles and estimates on the host and uses none.
 
     PYTHONPATH=src:. python benchmarks/run_torch.py serve_bench --device cpu
 """
@@ -26,15 +29,12 @@ import traceback
 
 from benchmarks.torch_device import emit_csv
 
-SECTIONS = ("serve_bench", "resilience_bench", "kernel_bench",
+SECTIONS = ("paper_tables", "banking_ablation", "calyx_bench",
+            "serve_bench", "resilience_bench", "kernel_bench",
             "model_profile_bench", "roofline_report")
-NOT_PORTED = ("paper_tables", "banking_ablation", "calyx_bench")
 
 
 def run_section(section: str, device=None) -> None:
-    if section in NOT_PORTED:
-        raise ValueError(f"section {section} has no PyTorch twin yet "
-                         f"(ROADMAP.md A.4)")
     if section not in SECTIONS:
         raise ValueError(f"unknown section {section}")
     mod = importlib.import_module(f"benchmarks.{section}_torch")

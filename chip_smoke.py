@@ -53,9 +53,9 @@ toolkit.  Phases:
 8. the decode and serving path (``repro_torch.models``,
    ``repro_torch.launch.serve``), for each architecture of
    ``SERVE_ARCHS`` at full width: qwen2-0.5b (dense), rwkv6-7b (ssm,
-   RWKV6; 8 of its 32 layers), zamba2-7b (hybrid: Mamba2 and one shared
+   RWKV6; 4 of its 32 layers), zamba2-7b (hybrid: Mamba2 and one shared
    attention block; 9 of its 27 groups), olmoe-1b-7b (moe, banked expert
-   dispatch; 4 of its 16 layers), whisper-large-v3 (audio: the encoder over 1500 frames, decoder
+   dispatch; 2 of its 16 layers), whisper-large-v3 (audio: the encoder over 1500 frames, decoder
    layers with self and cross attention) and llama-3.2-vision-11b (vlm:
    groups of 4 self layers and a gated cross layer over 1601 patches); each
    depth cut is listed as ``reduced``.  Its weights are drawn once
@@ -158,7 +158,22 @@ toolkit.  Phases:
    ``scripts/check_perf_regression.py`` with ``--serve-new``,
    ``--resilience-new`` and ``--model-new`` on them, no baseline: the
    contract checks; one JSON ``bench`` line a twin, the serve line with the
-   ``full`` and ``full_wide`` records and ``bench profile``'s device time.
+   ``full`` and ``full_wide`` records and ``bench profile``'s device time;
+15. ``compiler bench`` (after ``compiler examples``, last, beside nothing:
+   the verifier-overhead gate reads host clocks): every kernel count
+   zeroed, ``benchmarks/run_torch.py paper_tables banking_ablation
+   calyx_bench --device cuda`` in a process of its own (the 48-point Calyx
+   matrix with the torch oracle on the card; the MoE dispatch census on the
+   card), its file in ``build/chip_smoke_compiler`` (kept), then
+   ``scripts/check_perf_regression.py --baseline BENCH_calyx.json`` on it
+   (``calyx_bench`` run again, three runs at most, only while the gate's
+   one failure is the verifier overhead); every field of the 48 records
+   but the host clocks and the oracle's error equal to
+   ``BENCH_calyx.json``'s, each oracle error within 1e-4, the opt geomean
+   the reference's, banked MoE reading fewer slices than gather;
+   ``scripts/verify_matrix_torch.py`` and ``scripts/lint_design_torch.py
+   --model ffnn --factor 4 --profile`` exit 0; the counts still 0; one
+   JSON ``compiler_bench`` line.
 
 Every device time from ``torch.profiler`` comes from windows checked against
 CUDA events over the same calls (``_window_trusted``): a window whose
@@ -958,10 +973,11 @@ DECODE_TOL = 2e-2            # tests/test_decode_consistency.py:60
 
 # the served architectures, each (arch, layers, cpu_groups): full width, at
 # ``layers`` (None: full depth), with the depth in groups of its card vs CPU
-# check (None: every group).  rwkv6-7b, zamba2-7b and olmoe-1b-7b run 8 of
-# 32 layers, 9 of 27 groups and 4 of 16 layers, to pay for the draws of
-# whisper-large-v3 and llama-3.2-vision-11b within the script's time (their
-# full-depth numbers of PR 16-17 are in PERF_HISTORY.md).  At each depth the
+# check (None: every group).  rwkv6-7b, zamba2-7b and olmoe-1b-7b run 4 of
+# 32 layers, 9 of 27 groups and 2 of 16 layers, to pay for the draws of
+# whisper-large-v3 and llama-3.2-vision-11b and the compiler benchmarks
+# within the script's time (their full-depth and earlier numbers are in
+# PERF_HISTORY.md).  At each depth the
 # forward's spread under a one-ulp change of its input stays under the
 # 2e-2 decode vs forward holds (at 16 layers olmoe-1b-7b's seeded model,
 # blocks drawn at std 1/sqrt(16), ROADMAP.md C.6, moved by ~0.26), so every
@@ -971,8 +987,8 @@ DECODE_TOL = 2e-2            # tests/test_decode_consistency.py:60
 # included, ~4.6 GB for olmoe-1b-7b's, ~1.8 GB for whisper's 2 decoder
 # groups (and 2 encoder layers, ``CPU_ENCODER_LAYERS``), ~8.6 GB for the
 # VLM's first group of 4 self layers and its cross layer
-SERVE_ARCHS = (("qwen2-0.5b", None, None), ("rwkv6-7b", 8, 2),
-               ("zamba2-7b", 27, 1), ("olmoe-1b-7b", 4, 2),
+SERVE_ARCHS = (("qwen2-0.5b", None, None), ("rwkv6-7b", 4, 2),
+               ("zamba2-7b", 27, 1), ("olmoe-1b-7b", 2, 2),
                ("whisper-large-v3", None, 2), ("llama-3.2-vision-11b", None, 1))
 CPU_ENCODER_LAYERS = 2
 # tests/test_decode_consistency.py:27-31: the full-sequence forward may drop
@@ -1924,6 +1940,125 @@ def phase_compiler_examples() -> dict:
     return row
 
 
+COMPILER_OUT = ROOT / "build" / "chip_smoke_compiler"     # ignored by git
+COMPILER_SECTIONS = ("paper_tables", "banking_ablation", "calyx_bench")
+COMPILER_TIMEOUT = 400
+COMPILER_TRIES = 3           # as tests/test_torch_calyx_bench.py
+CALYX_CLOCKS = ("compile_us", "verify_us", "sim_wall_us", "trace_wall_us")
+VERIFY_OVERHEAD = "FAIL: stage-boundary verifier costs"
+
+
+def phase_compiler_bench(counters) -> dict:
+    """The compiler-side twins on the card, after ``compiler examples``
+    and beside nothing (the verifier-overhead gate reads host clocks):
+    ``benchmarks/run_torch.py paper_tables banking_ablation calyx_bench
+    --device cuda`` in a process of its own (the 48-point matrix's torch
+    oracle on the card, the MoE census's calls on the card), then
+    ``scripts/check_perf_regression.py --baseline BENCH_calyx.json`` on its
+    file, run again (``calyx_bench`` alone, three runs at most) only while
+    the gate's one failure is the verifier overhead; every field of the 48
+    records but the host clocks and the oracle's error equal to
+    ``BENCH_calyx.json``'s, each error within the matrix's 1e-4; banked MoE
+    dispatch reading fewer slices than gather; ``verify_matrix_torch.py``
+    and ``lint_design_torch.py --model ffnn --factor 4 --profile`` exit 0;
+    every kernel count still 0 (their oracle is plain torch).  One
+    JSON ``compiler_bench`` line."""
+    import re
+    import shutil
+    _zero_counts(counters)
+    t_phase = time.perf_counter()
+    shutil.rmtree(COMPILER_OUT, ignore_errors=True)
+    COMPILER_OUT.mkdir(parents=True)
+    out = COMPILER_OUT / "BENCH_calyx_torch.json"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)]),
+           "CALYX_BENCH_OUT": str(out), "CALYX_BENCH_DESIGNS": ""}
+    sections, runs, csv = COMPILER_SECTIONS, [], {}
+    for attempt in range(1, COMPILER_TRIES + 1):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "benchmarks" / "run_torch.py"),
+                            *sections, "--device", CARD], capture_output=True, text=True,
+                           timeout=COMPILER_TIMEOUT, cwd=str(ROOT), env=env)
+        runs.append(time.perf_counter() - t0)
+        (COMPILER_OUT / f"run{attempt}.log").write_text(r.stdout + r.stderr)
+        _check(r.returncode == 0, f"run_torch.py exited {r.returncode}: "
+                                  f"{r.stdout[-800:]} {r.stderr[-1500:]}")
+        for line in r.stdout.splitlines():
+            parts = line.split(",", 2)
+            if len(parts) == 3 and not line.startswith("#"):
+                csv[parts[0]] = (float(parts[1]), parts[2])
+        gate = subprocess.run([sys.executable, str(ROOT / "scripts" / "check_perf_regression.py"),
+                               "--baseline", str(ROOT / "BENCH_calyx.json"), "--new", str(out)],
+                              capture_output=True, text=True, timeout=120, cwd=str(ROOT))
+        (COMPILER_OUT / f"gate{attempt}.log").write_text(gate.stdout + gate.stderr)
+        fails = [ln for ln in gate.stdout.splitlines() if ln.startswith("FAIL:")]
+        if gate.returncode == 0 or attempt == COMPILER_TRIES or not fails \
+                or not all(ln.startswith(VERIFY_OVERHEAD) for ln in fails):
+            break
+        sections = ("calyx_bench",)
+    _check(gate.returncode == 0, f"the Calyx gate failed: {gate.stdout[-1500:]}")
+    data = json.loads(out.read_text())
+    ref = json.loads((ROOT / "BENCH_calyx.json").read_text())
+    recs = data["records"]
+    _check(len(recs) == len(ref["records"]) == 48, f"{len(recs)} records, not 48")
+    drop = set(CALYX_CLOCKS) | {"oracle_max_abs_err"}
+    differ = [f"{g['design']} f{g['banks']} share={g['share']} o{g['opt_level']}: {k}"
+              for g, w in zip(recs, ref["records"]) for k in set(g) | set(w)
+              if k not in drop and g.get(k) != w.get(k)]
+    _check(not differ, f"fields differ from BENCH_calyx.json: {differ[:5]}")
+    _check(data["opt_geomean_speedup"] == ref["opt_geomean_speedup"],
+           f"opt geomean {data['opt_geomean_speedup']} != {ref['opt_geomean_speedup']}")
+    errs = [g["oracle_max_abs_err"] for g in recs]
+    _check(max(errs) <= DESIGN_TOL, f"oracle error {max(errs)} over {DESIGN_TOL}")
+    moe = {}
+    for mode in ("banked", "gather"):
+        us, derived = csv[f"moe_{mode}_us_per_call"]
+        moe[mode] = {"us_per_call": us,
+                     "index_reads": int(re.fullmatch(r"gather_ops=(\d+)", derived).group(1))}
+    _check(moe["banked"]["index_reads"] < moe["gather"]["index_reads"],
+           f"banked MoE dispatch reads no fewer slices than gather: {moe}")
+    # the two scripts read no clock the gate holds: run them side by side
+    t0 = time.perf_counter()
+    procs = {label: subprocess.Popen(
+        [sys.executable, str(ROOT / "scripts" / script), *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT), env=env)
+        for label, script, args in (
+            ("verify_matrix", "verify_matrix_torch.py", []),
+            ("lint_design", "lint_design_torch.py",
+             ["--model", "ffnn", "--factor", "4", "--profile"]))}
+    tools = {}
+    try:
+        for label, proc in procs.items():
+            text, err = proc.communicate(timeout=300)
+            (COMPILER_OUT / f"{label}.log").write_text(text + err)
+            _check(proc.returncode == 0, f"{label} exited {proc.returncode}: "
+                                         f"{text[-800:]} {err[-800:]}")
+            tools[label] = {"s": time.perf_counter() - t0,
+                            "last": text.strip().splitlines()[-1]}
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    _check(tools["verify_matrix"]["last"].startswith(
+        "OK: 48 points x verify, 192 stage reports, all clean"),
+        f"verify_matrix_torch.py printed {tools['verify_matrix']['last']!r}")
+    launches = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counters}
+    _check(not any(launches.values()), f"the compiler benchmarks launched kernels: {launches}")
+    verify_us = sum(g["verify_us"] for g in recs)
+    compile_us = sum(g["compile_us"] for g in recs)
+    row = {"phase_s": time.perf_counter() - t_phase, "runner_s": runs,
+           "records": len(recs), "device": data["device"],
+           "oracle_max_abs_err": [min(errs), max(errs)], "tolerance": DESIGN_TOL,
+           "opt_geomean_speedup": data["opt_geomean_speedup"],
+           "verifier_overhead": verify_us / compile_us, "compile_s": compile_us / 1e6,
+           "sim_wall_s": sum(g["sim_wall_us"] for g in recs) / 1e6,
+           "gate": "ok", "moe": moe, "tools": tools,
+           "paper": {k: csv[k][1] for k in ("fig3_speedup_1to2", "fig3_speedup_2to4",
+                                             "table2_ffnn_f4_lut")},
+           "kernel_launches": launches, "card": _card_name_and_limit()}
+    print(json.dumps({"compiler_bench": row}))
+    return row
+
+
 # -- the benchmark twins -------------------------------------------------------
 
 BENCH_OUT = ROOT / "build" / "chip_smoke_bench"       # ignored by git
@@ -2214,7 +2349,7 @@ def main() -> int:
 def run_train_and_tools(run, results, counters) -> None:
     """The training path, which launches none of the four kernels (every
     count zeroed just before it and read just after: the ``train`` line),
-    then the compiler examples."""
+    then the compiler examples and the compiler-side twins."""
     train = {}
     _zero_counts(counters)
     for label, key, fn in (("train card vs cpu", "card_vs_cpu", phase_train_vs_cpu),
@@ -2230,6 +2365,7 @@ def run_train_and_tools(run, results, counters) -> None:
                                 for m in counters}
     print(json.dumps({"train": train}))
     run("compiler examples", phase_compiler_examples)
+    run("compiler bench", lambda: phase_compiler_bench(counters))
 
 
 if __name__ == "__main__":

@@ -124,7 +124,10 @@ class ModuleCost:
 class OpCounter(TorchDispatchMode):
     """Counts the local ops that run under it (see the module docstring):
     ``flops``, ``traffic_bytes``, ``collective_bytes`` / ``collective_count``
-    by kind, ``peak_live_bytes`` and ``ops`` (local ops dispatched)."""
+    by kind, ``peak_live_bytes``, ``ops`` (local ops dispatched) and
+    ``op_counts`` (the same ops by name: the aten op's name, other
+    namespaces' as ``ns::name``; the counterpart of the reference's
+    ``hlo_stats.count_op``)."""
 
     def __init__(self):
         super().__init__()
@@ -135,6 +138,7 @@ class OpCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_live_bytes = 0
         self.ops = 0
+        self.op_counts: Dict[str, int] = {}
         self._refs: Dict[int, List[int]] = {}   # storage -> [refs, bytes]
         self._suppress = 0
         self._patched = None
@@ -197,6 +201,9 @@ class OpCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if not self._suppress:
             self.ops += 1
+            key = (func._opname if func.namespace == "aten"
+                   else f"{func.namespace}::{func._opname}")
+            self.op_counts[key] = self.op_counts.get(key, 0) + 1
             self._count(func, args, kwargs, out)
             for t in _tensors(out):
                 self.track(t)
@@ -231,6 +238,12 @@ class OpCounter(TorchDispatchMode):
             return
         self.traffic_bytes += (_nbytes(args) + _nbytes(list(kwargs.values()))
                                + _nbytes(out))
+
+    def slice_reads(self) -> int:
+        """The index reads counted: the gathers and indexings of
+        ``_SLICE_READS``, the ops XLA lowers to ``gather`` /
+        ``dynamic-slice``."""
+        return sum(self.op_counts.get(name, 0) for name in _SLICE_READS)
 
     def cost(self) -> ModuleCost:
         return ModuleCost(flops=self.flops, traffic_bytes=self.traffic_bytes,

@@ -5,8 +5,9 @@ The reference sums collective bytes out of HLO text and models a TPU v5e.
 The port's collective counts come from ``launch.op_analysis`` (the ops
 DTensor issues), so :class:`CollectiveStats` is built from an
 :class:`~repro_torch.launch.op_analysis.OpCounter` (:meth:`from_counter`);
-the HLO-text helpers (``collective_stats``, ``count_op``) have no torch
-input and are not ported.
+the HLO-text helper ``collective_stats`` has no torch input and is not
+ported.  ``count_op``'s counterpart is ``OpCounter.op_counts`` (aten op name
+-> calls), which ``benchmarks/banking_ablation_torch.py`` reads.
 
 The roofline models one NVIDIA H100 SXM5 (80GB HBM3, 700 W), the card the
 port runs on.  Every constant is the datasheet's, none is measured:

@@ -215,19 +215,37 @@ def test_kernel_bench_emits_the_reference_lines():
     assert "block=(64, 128, 128)" in r.stdout
 
 
-@pytest.mark.parametrize("section", ["paper_tables", "banking_ablation",
-                                     "calyx_bench"])
-def test_runner_refuses_the_sections_not_ported(section):
-    r = _py(["benchmarks/run_torch.py", section, "--device", "cpu"])
-    assert r.returncode == 1
-    assert "ValueError" in r.stderr and "ROADMAP.md A.4" in r.stderr
-    assert f"failures: ['{section}']" in r.stdout
+# the lines each compiler section prints: (first name, last name, count);
+# calyx_bench over its matmul points only
+COMPILER_SECTIONS = {
+    "paper_tables": ("fig2_ffnn_cycles", "fig3_speedup_2to4", 35),
+    "banking_ablation": ("ablate_f2_layout_cycles", "moe_gather_us_per_call", 44),
+    "calyx_bench": ("calyx_matmul_f1_shared_o0", "calyx_bench_json", 14),
+}
 
 
-def test_twins_raise_without_a_card():
-    r = _py(["benchmarks/run_torch.py", "kernel_bench"],
-            {"CUDA_VISIBLE_DEVICES": ""})
-    assert r.returncode == 1 and "no CUDA device" in r.stdout
+@pytest.mark.parametrize("section", list(COMPILER_SECTIONS))
+def test_runner_runs_the_compiler_sections(section, tmp_path):
+    out = tmp_path / "calyx.json"
+    r = _py(["benchmarks/run_torch.py", section, "--device", "cpu"],
+            {"CALYX_BENCH_DESIGNS": "matmul", "CALYX_BENCH_OUT": str(out)})
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    names = [line.split(",")[0] for line in r.stdout.splitlines()
+             if not line.startswith("#")]
+    first, last, count = COMPILER_SECTIONS[section]
+    assert (names[0], names[-1], len(names)) == (first, last, count)
+    assert "failures: none" in r.stdout
+    if section == "calyx_bench":
+        data = json.loads(out.read_text())
+        assert data["device"] == "cpu" and len(data["records"]) == 12
+
+
+def test_twins_raise_without_a_card(tmp_path):
+    r = _py(["benchmarks/run_torch.py", "kernel_bench", "calyx_bench"],
+            {"CUDA_VISIBLE_DEVICES": "", "CALYX_BENCH_OUT": str(tmp_path / "c.json")})
+    assert r.returncode == 1 and r.stdout.count("no CUDA device") == 2
+    assert "failures: ['kernel_bench', 'calyx_bench']" in r.stdout
+    assert not (tmp_path / "c.json").exists()
 
 
 def test_full_width_profiles_serve_only_qwen2_on_the_card(monkeypatch):

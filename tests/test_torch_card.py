@@ -1,7 +1,7 @@
 """The port on the card (``-m cuda``; these tests skip without one): its CUDA
 kernels, the serve step of the decode path, a train step with its
-checkpoint, the dry run of a reduced cell and the op counter's exact mesh
-counts with fake CUDA tensors.
+checkpoint, the dry run of a reduced cell, the op counter's exact mesh
+counts with fake CUDA tensors and the Calyx matrix's torch oracle.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card.py
 
@@ -414,3 +414,29 @@ def test_op_counts_on_a_fake_cuda_mesh():
     out = torch_mesh_counts.counts("cuda")
     torch_mesh_counts.check_product(out)
     torch_mesh_counts.check_sum(out)
+
+
+@pytest.mark.cuda
+def test_calyx_bench_oracle_on_the_card(tmp_path):
+    """``benchmarks/calyx_bench_torch.py`` over the matmul points with the
+    torch oracle on the card: exit 0, 12 records naming the card, each
+    oracle error within the matrix's 1e-4."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    _card()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = tmp_path / "calyx.json"
+    r = subprocess.run(
+        [sys.executable, "benchmarks/calyx_bench_torch.py", "--device", "cuda"],
+        capture_output=True, text=True, timeout=300, cwd=str(root),
+        env={**os.environ, "PYTHONPATH": os.pathsep.join([str(root / "src"), str(root)]),
+             "CALYX_BENCH_DESIGNS": "matmul", "CALYX_BENCH_OUT": str(out)})
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    data = json.loads(out.read_text())
+    assert data["device"] != "cpu" and len(data["records"]) == 12
+    for rec in data["records"]:
+        assert rec["design"] == "matmul" and rec["cycles_match"]
+        assert 0.0 <= rec["oracle_max_abs_err"] <= 1e-4

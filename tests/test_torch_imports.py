@@ -1,8 +1,10 @@
 """The port stands alone: importing it, or its drivers
 (``examples/serve_batched_torch.py``, ``examples/train_lm_torch.py``,
 ``examples/compile_to_calyx_torch.py``, ``examples/banking_sweep_torch.py``,
-the benchmark twins ``benchmarks/*_torch.py`` and their runner
-``benchmarks/run_torch.py``), loads neither JAX nor ``repro``."""
+the benchmark twins ``benchmarks/*_torch.py``, their runner
+``benchmarks/run_torch.py`` and the script twins
+``scripts/{verify_matrix,lint_design}_torch.py``), loads neither JAX nor
+``repro``."""
 import json
 import os
 import pathlib
@@ -48,7 +50,8 @@ for name in ("serve_batched_torch", "train_lm_torch", "compile_to_calyx_torch",
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for name in ("torch_device", "serve_bench_torch", "resilience_bench_torch",
              "model_profile_bench_torch", "roofline_report_torch",
-             "kernel_bench_torch", "run_torch"):
+             "kernel_bench_torch", "paper_tables_torch",
+             "banking_ablation_torch", "calyx_bench_torch", "run_torch"):
     spec = importlib.util.spec_from_file_location(
         f"benchmarks.{name}", f"benchmarks/{name}.py")
     mod = importlib.util.module_from_spec(spec)
@@ -57,6 +60,9 @@ for name in ("torch_device", "serve_bench_torch", "resilience_bench_torch",
 import benchmarks.run_torch as runner
 for section in runner.SECTIONS:         # the modules the runner loads
     importlib.import_module(f"benchmarks.{section}_torch")
+for name in ("verify_matrix_torch", "lint_design_torch"):
+    spec = importlib.util.spec_from_file_location(name, f"scripts/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 repro_torch.models.all_names()          # imports the ten config modules
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
