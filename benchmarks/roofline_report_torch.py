@@ -10,8 +10,10 @@ of step time, then the top candidate per arch: the same lines as the
 reference's.
 
 Enrichment: where ``python -m repro_torch.launch.dryrun`` has written
-records under ``artifacts/dryrun_torch/``, one line per cell with its
-whole-model roofline (compute, memory and collective seconds at the H100's
+records under ``artifacts/dryrun_torch/`` (keys ``roofline_torch_...``) and
+the optimized sweep under ``artifacts/dryrun_torch_opt/``
+(``roofline_torch_opt_...``), as the reference reads ``dryrun_baseline`` and
+``dryrun_opt``, one line per cell with its whole-model roofline (compute, memory and collective seconds at the H100's
 peaks, the dominant resource).  A missing directory is not an error, as in
 the reference.
 
@@ -33,7 +35,10 @@ from benchmarks import torch_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BENCH_MODEL = ROOT / "BENCH_model_torch.json"
 ARTIFACTS = ROOT / "artifacts"
-DRYRUN_DIR = "dryrun_torch"          # repro_torch.launch.dryrun.ARTIFACTS
+# key prefix -> record directory (repro_torch.launch.dryrun.ARTIFACTS, and
+# the optimized sweep of scripts/dryrun_sweep_torch.py)
+DRYRUN_DIRS = (("roofline_torch_", "dryrun_torch"),
+               ("roofline_torch_opt_", "dryrun_torch_opt"))
 
 
 def load_model_bench(path: pathlib.Path = BENCH_MODEL):
@@ -71,23 +76,24 @@ def run(emit, device=None) -> None:
              f"-bound) -> first Calyx lowering candidate")
 
     # -- enrichment: the port's dry-run cells when present ------------------
-    for r in load_cells(DRYRUN_DIR):
-        key = f"roofline_torch_{r['arch']}_{r['shape']}_{r['mesh']}"
-        if r["status"] == "skipped":
-            emit(key, 0.0, f"SKIP:{r.get('reason', 'unsupported cell')[:80]}")
-            continue
-        if r["status"] != "ok":
-            emit(key, 0.0, f"ERROR:{r.get('error', '?')[:80]}")
-            continue
-        f = r["roofline"]
-        emit(key, f["step_time_s"] * 1e6,
-             f"dom={f['dominant']}"
-             f"|compute_s={f['compute_s']:.4f}"
-             f"|memory_s={f['memory_s']:.4f}"
-             f"|collective_s={f['collective_s']:.4f}"
-             f"|useful_frac={f['useful_flops_frac']:.3f}"
-             f"|roofline_frac={f['roofline_frac']:.4f}")
-
+    for prefix, dirname in DRYRUN_DIRS:
+        for r in load_cells(dirname):
+            key = f"{prefix}{r['arch']}_{r['shape']}_{r['mesh']}"
+            if r["status"] == "skipped":
+                emit(key, 0.0,
+                     f"SKIP:{r.get('reason', 'unsupported cell')[:80]}")
+                continue
+            if r["status"] != "ok":
+                emit(key, 0.0, f"ERROR:{r.get('error', '?')[:80]}")
+                continue
+            f = r["roofline"]
+            emit(key, f["step_time_s"] * 1e6,
+                 f"dom={f['dominant']}"
+                 f"|compute_s={f['compute_s']:.4f}"
+                 f"|memory_s={f['memory_s']:.4f}"
+                 f"|collective_s={f['collective_s']:.4f}"
+                 f"|useful_frac={f['useful_flops_frac']:.3f}"
+                 f"|roofline_frac={f['roofline_frac']:.4f}")
 
 if __name__ == "__main__":
     torch_device.main(run, __doc__)

@@ -134,14 +134,25 @@ toolkit.  Phases:
    ``offload_report`` under the analytic costs at batch 1, cache 4096 and
    the H100's datasheet peaks; one JSON ``analysis`` line;
 11. ``dry run``: ``python -m repro_torch.launch.dryrun --device cuda`` in
-   a process of its own, started before the VLM's weight draw and run on
-   the host's CPU beside it, over ``DRYRUN_CELLS`` on the fake 16x16 and
+   processes of their own (gemma2-27b's cell in a second one), started
+   before the VLM's weight draw and run on the host's CPU beside it, over
+   ``DRYRUN_CELLS`` on the fake 16x16 and
    2x16x16 meshes (fake CUDA tensors, a fake process group), and waited
    for right after that draw, before the VLM's first timed phase: every
    cell ``ok``, olmoe-1b-7b's expert-parallel all-reduce among its
    collectives; one JSON ``dryrun`` line a cell, with the process's
    seconds, the draw's and the script's wait (its ``run_s`` are taken on a
-   host the draw shares);
+   host the draw shares).  A third process beside them runs qwen2-0.5b
+   ``train_4k`` on 16x16 with ``REPRO_MICROBATCH=4`` (the microbatch split
+   on DTensors), which the first runs at 1: it ends ``ok``, counts the same
+   dot FLOPs a device within 1% and a lower ``peak_live_bytes``;
+   ``dry-run report`` then works on every process's records:
+   ``benchmarks/fix_artifacts_torch.py`` restores a record whose
+   ``model_flops`` and ``roofline`` were made stale, bit for bit;
+   ``benchmarks/make_report_torch.py`` lists every record in its mesh's
+   table; ``scripts/gen_experiments_torch.py --out build/...`` writes a
+   document holding them, with the microbatched cell's summary line; one
+   JSON ``dryrun_report`` line;
 12. ``compiler examples``: ``examples/compile_to_calyx_torch.py --model
    ffnn --factor 2 --simulate-rtl`` prints ``matches estimate`` and an
    oracle error (the torch oracle on the card) under 1e-4;
@@ -190,6 +201,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1798,10 +1810,21 @@ OFFLOAD_AT = dict(batch=1, cache_len=4096)      # tests/test_modelprof.py's
 DRYRUN_CELLS = (("qwen2-7b", "train_4k", "pod16x16"),
                 ("gemma2-27b", "train_4k", "pod2x16x16"),
                 ("olmoe-1b-7b", "decode_32k", "pod16x16"),
-                ("zamba2-7b", "long_500k", "pod16x16"))
+                ("zamba2-7b", "long_500k", "pod16x16"),
+                ("qwen2-0.5b", "train_4k", "pod16x16"))
+# gemma2-27b's cell, the longest, runs in a process of its own beside the
+# others', so the cells end within the draw they run beside
+DRYRUN_ALONE = (("gemma2-27b", "train_4k", "pod2x16x16"),)
 DRYRUN_BESIDE = "llama-3.2-vision-11b"     # beside its weight draw
 DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"     # ignored by git
 DRYRUN_TIMEOUT = 480
+# the microbatched train step on the mesh, in a second process; the first
+# runs the same cell at one microbatch
+DRYRUN_MB = 4
+DRYRUN_MB_CELLS = (("qwen2-0.5b", "train_4k", "pod16x16"),)
+DRYRUN_MB_OUT = ROOT / "build" / "chip_smoke_dryrun_mb"
+MB_FLOPS_RTOL = 0.01
+REPORT_OUT = "build/chip_smoke_experiments.md"       # relative to ROOT
 EXAMPLES_OUT = ROOT / "build" / "chip_smoke_examples"
 
 
@@ -1833,72 +1856,144 @@ def phase_op_analysis(sp: ServePath) -> dict:
     return row
 
 
-def start_dryrun() -> subprocess.Popen:
+def start_dryrun(cells=DRYRUN_CELLS, out: Path = DRYRUN_OUT,
+                 microbatches: int = 1) -> subprocess.Popen:
     """Start ``python -m repro_torch.launch.dryrun --device cuda`` over
-    ``DRYRUN_CELLS`` in a process of its own (the fake process group owns
-    it), on the host's CPU beside a weight draw, which times nothing."""
+    ``cells`` in a process of its own (the fake process group owns it), on
+    the host's CPU beside a weight draw, which times nothing."""
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
-           CARD, "--force", "--out", str(DRYRUN_OUT)]
-    cmd += [f"--cell={a}:{s}:{m}" for a, s, m in DRYRUN_CELLS]
+           CARD, "--force", "--out", str(out)]
+    cmd += [f"--cell={a}:{s}:{m}" for a, s, m in cells]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, cwd=str(ROOT),
-                            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+                            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                                 "REPRO_MICROBATCH": str(microbatches)})
     proc.started = time.time()
+    proc.cells, proc.out = cells, out
     return proc
 
 
-def phase_dryrun(proc: subprocess.Popen, draw_end: float) -> List[dict]:
-    """Wait for the dry run, right after the draw it ran beside and before
-    any timed phase: every cell ``ok``, the expert-parallel cell's
-    all-reduce among its collectives; one ``dryrun`` line a cell, with the
-    seconds from its start to its last record (``process_s``) and to the
-    draw's end (``draw_s``), and the script's wait for it (``waited_s``)."""
-    import shutil
-    try:
-        left = DRYRUN_TIMEOUT - (time.time() - proc.started)
-        out, err = proc.communicate(timeout=max(left, 1.0))
-        waited = time.time() - draw_end
-        r = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
-        paths = [DRYRUN_OUT / f"{a}__{s}__{m}.json" for a, s, m in DRYRUN_CELLS]
-        paths = [p for p in paths if p.exists()]
-        recs = [json.loads(p.read_text()) for p in paths]
-        wall = max((p.stat().st_mtime for p in paths), default=proc.started) \
-            - proc.started
-    finally:
-        proc.kill()
-        proc.wait()
-        shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
-    _check(r.returncode == 0, f"dryrun exited {r.returncode}: "
-                              f"{r.stdout[-800:]} {r.stderr[-1500:]}")
-    _check(len(recs) == len(DRYRUN_CELLS), f"{len(recs)} dry-run records")
+def _dryrun_row(rec: dict, proc, draw_end: float, waited: float,
+                wall: float, card: str) -> dict:
+    roof = rec["roofline"]
+    return {"arch": rec["arch"], "shape": rec["shape"],
+            "mesh": rec["mesh"], "chips": rec["chips"],
+            "microbatches": rec["microbatches"],
+            "arg_bytes_per_device": rec["arg_bytes_per_device"],
+            "peak_live_bytes_per_device":
+                rec["memory_analysis"]["peak_live_bytes"],
+            "flops_per_device": rec["hlo_cost"]["flops"],
+            "bytes_per_device": rec["hlo_cost"]["traffic_bytes"],
+            "collective_bytes_per_device": rec["collectives"]["bytes_by_kind"],
+            "collective_ops": rec["collectives"]["count_by_kind"],
+            "model_flops": rec["model_flops"],
+            "dominant": roof["dominant"],
+            "roofline_frac": roof["roofline_frac"],
+            "useful_flops_frac": roof["useful_flops_frac"],
+            "ops": rec["hlo_bytes"], "run_s": rec["run_s"],
+            "process_s": wall, "draw_s": draw_end - proc.started,
+            "waited_s": waited, "card": card}
+
+
+def phase_dryrun(procs: List[subprocess.Popen], draw_end: float) -> List[dict]:
+    """Wait for the dry-run processes, right after the draw they ran beside
+    and before any timed phase: every cell ``ok``, the expert-parallel
+    cell's all-reduce among its collectives, the microbatched cell's dot
+    FLOPs a device within ``MB_FLOPS_RTOL`` of the same cell's at one
+    microbatch and its peak of live bytes lower; one ``dryrun`` line a
+    cell, with the seconds from its process's start to its last record
+    (``process_s``) and to the draw's end (``draw_s``), and the script's
+    wait for it (``waited_s``).  The records stay for ``dry-run report``."""
     card = _card_name_and_limit()
     rows = []
-    for rec in recs:
-        _check(rec["status"] == "ok", f"{rec['arch']} {rec['shape']}: "
-                                      f"{rec.get('error')}")
-        roof = rec["roofline"]
-        row = {"arch": rec["arch"], "shape": rec["shape"],
-               "mesh": rec["mesh"], "chips": rec["chips"],
-               "arg_bytes_per_device": rec["arg_bytes_per_device"],
-               "peak_live_bytes_per_device":
-                   rec["memory_analysis"]["peak_live_bytes"],
-               "flops_per_device": rec["hlo_cost"]["flops"],
-               "bytes_per_device": rec["hlo_cost"]["traffic_bytes"],
-               "collective_bytes_per_device": rec["collectives"]["bytes_by_kind"],
-               "collective_ops": rec["collectives"]["count_by_kind"],
-               "model_flops": rec["model_flops"],
-               "dominant": roof["dominant"],
-               "roofline_frac": roof["roofline_frac"],
-               "useful_flops_frac": roof["useful_flops_frac"],
-               "ops": rec["hlo_bytes"], "run_s": rec["run_s"],
-               "process_s": wall, "draw_s": draw_end - proc.started,
-               "waited_s": waited, "card": card}
-        print(json.dumps({"dryrun": row}))
-        rows.append(row)
+    for proc in procs:
+        try:
+            left = DRYRUN_TIMEOUT - (time.time() - proc.started)
+            out, err = proc.communicate(timeout=max(left, 1.0))
+        finally:
+            proc.kill()
+            proc.wait()
+        waited = time.time() - draw_end
+        _check(proc.returncode == 0, f"dryrun exited {proc.returncode}: "
+                                     f"{out[-800:]} {err[-1500:]}")
+        paths = [proc.out / f"{a}__{s}__{m}.json" for a, s, m in proc.cells]
+        paths = [p for p in paths if p.exists()]
+        _check(len(paths) == len(proc.cells), f"{len(paths)} dry-run records")
+        wall = max(p.stat().st_mtime for p in paths) - proc.started
+        for p in paths:
+            rec = json.loads(p.read_text())
+            _check(rec["status"] == "ok", f"{rec['arch']} {rec['shape']}: "
+                                          f"{rec.get('error')}")
+            row = _dryrun_row(rec, proc, draw_end, waited, wall, card)
+            print(json.dumps({"dryrun": row}))
+            rows.append(row)
     moe = [r for r in rows if r["arch"] == "olmoe-1b-7b"]
     _check(all(r["collective_ops"].get("all-reduce", 0) > 0 for r in moe),
            "the expert-parallel cell shows no all-reduce")
+    for a, s, m in DRYRUN_MB_CELLS:
+        one, many = ([r for r in rows if (r["arch"], r["shape"], r["mesh"])
+                      == (a, s, m) and r["microbatches"] == n][0]
+                     for n in (1, DRYRUN_MB))
+        rel = abs(many["flops_per_device"] / one["flops_per_device"] - 1)
+        _check(rel <= MB_FLOPS_RTOL, f"{a} {s}: {DRYRUN_MB} microbatches "
+                                     f"count {rel:.2%} other dot FLOPs")
+        _check(many["peak_live_bytes_per_device"]
+               < one["peak_live_bytes_per_device"],
+               f"{a} {s}: {DRYRUN_MB} microbatches hold no fewer live bytes")
     return rows
+
+
+def phase_dryrun_report() -> dict:
+    """The report tooling on the dry run's records: ``fix_artifacts_torch``
+    restores the one-microbatch record of ``DRYRUN_MB_CELLS`` bit for bit
+    after its ``model_flops`` and ``roofline`` were made stale;
+    ``make_report_torch`` lists every record, ``ok``, in its mesh's table;
+    ``gen_experiments_torch`` writes ``REPORT_OUT`` from both directories,
+    holding every record's row and the microbatched cell's summary line."""
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import fix_artifacts_torch, make_report_torch
+    (DRYRUN_OUT / "host.txt").write_text(
+        f"{_card_name_and_limit()}; --device {CARD}; torch {torch.__version__}\n")
+    a, s, m = DRYRUN_MB_CELLS[0]
+    before = {p: p.read_bytes() for p in DRYRUN_OUT.glob("*.json")}
+    path = DRYRUN_OUT / f"{a}__{s}__{m}.json"
+    stale = json.loads(before[path])
+    stale["model_flops"] = 0.0
+    stale["roofline"] = {}
+    path.write_text(json.dumps(stale, indent=1))
+    fixed = fix_artifacts_torch.fix_dir(DRYRUN_OUT)
+    _check(all(p.read_bytes() == b for p, b in before.items()),
+           "fix_artifacts_torch did not restore the records bit for bit")
+    _check(fixed == len(DRYRUN_CELLS), f"fix_dir fixed {fixed} records")
+    base = make_report_torch.load(str(DRYRUN_OUT))
+    opt = make_report_torch.load(str(DRYRUN_MB_OUT))
+    listed = 0
+    for cells, table_of in ((base, make_report_torch.dryrun_table),
+                            (opt, make_report_torch.roofline_table)):
+        for mesh in ("pod16x16", "pod2x16x16"):
+            table = table_of(cells, mesh)
+            for (ca, cs, cm) in cells:
+                if cm == mesh:
+                    _check(f"| {ca} | {cs} |" in table,
+                           f"{ca} {cs} missing from the {mesh} table")
+                    listed += 1
+    _check(listed == len(base) + len(opt), f"{listed} records listed")
+    r = subprocess.run([sys.executable, "scripts/gen_experiments_torch.py",
+                        "--base", str(DRYRUN_OUT), "--opt", str(DRYRUN_MB_OUT),
+                        "--out", REPORT_OUT], capture_output=True, text=True,
+                       cwd=str(ROOT), timeout=120)
+    _check(r.returncode == 0, f"gen_experiments_torch: {r.stderr[-1500:]}")
+    doc = (ROOT / REPORT_OUT).read_text()
+    for (ca, cs, cm) in list(base) + list(opt):
+        _check(f"| {ca} | {cs} |" in doc, f"{ca} {cs} missing from the document")
+    _check(f"* **{a} × {s}**" in doc, f"no summary line for {a} {s}")
+    _check("Records taken on: " + _card_name_and_limit() in doc,
+           "the document does not name the card")
+    row = {"fixed": fixed, "restored": True, "listed": listed,
+           "opt_rows": len(opt), "document_lines": len(doc.splitlines()),
+           "gen_experiments": r.stdout.strip().splitlines()}
+    print(json.dumps({"dryrun_report": row}))
+    return row
 
 
 def phase_compiler_examples() -> dict:
@@ -2303,16 +2398,23 @@ def main() -> int:
     # the dry run works on the host's CPU beside the last architecture's
     # weight draw (numpy, ~3 min), which times nothing, and is waited for
     # right after it, before any timed phase
-    dryrun = None
+    dryrun = []
     try:
         for arch, layers, cpu_groups in SERVE_ARCHS:
             if arch == DRYRUN_BESIDE:
-                dryrun = start_dryrun()
+                dryrun = [start_dryrun(tuple(c for c in DRYRUN_CELLS
+                                             if c not in DRYRUN_ALONE)),
+                          start_dryrun(DRYRUN_ALONE),
+                          start_dryrun(DRYRUN_MB_CELLS, DRYRUN_MB_OUT,
+                                       DRYRUN_MB)]
             drawn = run(f"{arch} weights",
                         lambda: ServePath(arch, layers, cpu_groups))
             if arch == DRYRUN_BESIDE:
                 draw_end = time.time()
-                run("dry run", lambda: phase_dryrun(dryrun, draw_end))
+                if run("dry run", lambda: phase_dryrun(dryrun, draw_end)):
+                    run("dry-run report", phase_dryrun_report)
+                for d in (DRYRUN_OUT, DRYRUN_MB_OUT):
+                    shutil.rmtree(d, ignore_errors=True)
             if not drawn:
                 continue
             sp = results.pop(f"{arch} weights")
@@ -2331,9 +2433,9 @@ def main() -> int:
         run("bench", lambda: phase_bench(results.get("bench profile")))
         run_train_and_tools(run, results, counters)
     finally:
-        if dryrun is not None:
-            dryrun.kill()
-            dryrun.wait()
+        for proc in dryrun:
+            proc.kill()
+            proc.wait()
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if failures:

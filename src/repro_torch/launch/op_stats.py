@@ -14,7 +14,9 @@ port runs on.  Every constant is the datasheet's, none is measured:
 
   * ``PEAK_FLOPS_BF16`` 989.4e12 FLOP/s: dense bf16 on the tensor cores;
   * ``HBM_BW`` 3.35e12 B/s;
-  * ``LINK_BW`` 25e9 B/s per NVLink 4 link and direction, ``LINKS`` 18.
+  * ``LINK_BW`` 25e9 B/s per NVLink 4 link and direction, ``LINKS`` 18;
+  * ``HBM_BYTES`` 80e9 B of HBM3 a card, against which the dry run's
+    ``peak_live_bytes`` is read (``scripts/gen_experiments_torch.py``).
 
 The collective term charges a device's collective bytes against its 18
 links.  A 256- or 512-GPU mesh spans many NVLink domains (8 GPUs a
@@ -30,6 +32,7 @@ PEAK_FLOPS_BF16 = 989.4e12      # per card, dense bf16 (datasheet)
 HBM_BW = 3.35e12                # bytes/s per card (datasheet)
 LINK_BW = 25e9                  # bytes/s per NVLink 4 link, one direction (datasheet)
 LINKS = 18                      # NVLink 4 links per card (datasheet)
+HBM_BYTES = 80e9                # bytes of HBM3 per card (datasheet)
 
 
 @dataclasses.dataclass

@@ -42,6 +42,28 @@ def grad_of(cfg: ModelConfig, params, batch: Dict
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 
+def split_rows(v: torch.Tensor, m: int):
+    """``v``'s rows in ``m`` contiguous microbatches, the reference's
+    ``reshape((m, -1) + shape[1:])``: microbatch ``i`` holds rows
+    ``[i*B/m, (i+1)*B/m)``.
+
+    A plain tensor is reshaped.  A DTensor sharded on its rows cannot be:
+    ``m`` rows of microbatches do not divide over the data axes, where
+    GSPMD re-shards and DTensor refuses.  So its rows move to its last
+    dimension's shards (an all-to-all per sharded mesh axis), the rows are
+    split locally, and each microbatch goes back to ``v``'s placements (an
+    all-to-all of ``B/m`` rows each): every microbatch is sharded over the
+    data axes as the batch is, and no rank holds more than its share."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(v, DTensor):
+        return v.reshape((m, -1) + tuple(v.shape[1:]))
+    mesh, placements = v.device_mesh, v.placements
+    across = [Shard(v.ndim - 1) if p == Shard(0) else p for p in placements]
+    parts = v.redistribute(mesh, across).reshape(
+        (m, -1) + tuple(v.shape[1:]))
+    return [parts[i].redistribute(mesh, placements) for i in range(m)]
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     microbatches: int = 1):
     """Train step with optional gradient accumulation: the global batch is
@@ -64,10 +86,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             if microbatches <= 1:
                 metrics, grads = grad_of(cfg, params, batch)
             else:
-                mbs = {k: v.reshape((microbatches, -1) + tuple(v.shape[1:]))
+                mbs = {k: split_rows(v, microbatches)
                        for k, v in batch.items()}
-                grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
+                grads = [torch.zeros_like(p, dtype=torch.float32)
                          for p in adamw.leaves(params)]
                 for i in range(microbatches):
                     metrics, g = grad_of(cfg, params,

@@ -224,12 +224,17 @@ def unshard(x: torch.Tensor, *dims: int) -> torch.Tensor:
 
 def _embed_replicated(tokens, table):
     """``F.embedding`` on each device's tokens over the whole table: the
-    table gathered to every device, the rows placed as the tokens are."""
-    from torch.distributed.tensor import Replicate
+    table gathered to every device, the rows placed as the tokens are.  A
+    device's gradient of the table covers its own tokens only: a partial
+    sum over the axes that shard the tokens (``ROADMAP.md`` C.26)."""
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     rep = [Replicate()] * table.device_mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate()
+            for p in tokens.placements]
     return local_map(F.embedding, out_placements=list(tokens.placements),
                      in_placements=(list(tokens.placements), rep),
+                     in_grad_placements=(list(tokens.placements), grad),
                      device_mesh=table.device_mesh,
                      redistribute_inputs=True)(tokens, table)
 
@@ -252,10 +257,30 @@ def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     return constrain(x, "batch", "seq", "embed")
 
 
+class _GradLikeInput(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient is redistributed to the
+    input's placements.  A tied table takes gradients from the lookup and
+    from the head: placed alike they add locally, where DTensor may
+    otherwise turn the lookup's shards into a partial sum, which some torch
+    versions cannot do (``ROADMAP.md`` C.27)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.spec = (t.device_mesh, t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(*ctx.spec)
+
+
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """The head in the model dtype, then the logits in f32."""
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        table = params["embed"]
+        if _MESH is not None and table.requires_grad:
+            table = _GradLikeInput.apply(table)
+        logits = x @ table.T
     else:
         logits = x @ params["lm_head"]
     logits = softcap(logits.float(), cfg.logit_softcap)

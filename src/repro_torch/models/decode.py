@@ -43,7 +43,7 @@ from . import attention as A
 from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
-from .common import embed, lm_logits, norm, per_device, sinusoid_pos
+from .common import embed, lm_logits, norm, per_device, sinusoid_pos, unshard
 from .config import ModelConfig
 from .mlp import mlp_block
 from .transformer import encode_audio, group_params
@@ -180,7 +180,10 @@ def _cross_decode(cfg: ModelConfig, p, x1, kc, vc):
     q = x1 @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    qg = q.reshape(b, 1, h, dh).transpose(1, 2).reshape(b, hkv, g, 1, dh)
+    # the heads split into kv groups: gathered first, as attention.qkv_proj
+    # does (ROADMAP.md C.20, C.25)
+    qg = unshard(q, -1).reshape(b, 1, h, dh).transpose(1, 2) \
+        .reshape(b, hkv, g, 1, dh)
     out = per_device(A.attend_cache, qg, kc, vc, like=kc)
     out = out.reshape(b, h, 1, dh).transpose(1, 2).reshape(b, 1, -1)
     return out.to(x1.dtype) @ p["wo"]

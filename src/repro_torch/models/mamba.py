@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import constrain, norm
+from .common import constrain, norm, on_mesh, per_device
 from .config import ModelConfig
 from .ssm_ops import chunked_decay_scan, decay_scan_step
 
@@ -43,7 +43,12 @@ def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv over (B, S, CH), width K, in the reference's
-    shift-and-add order (tap 0 first), then ``silu(out + b)``."""
+    shift-and-add order (tap 0 first), then ``silu(out + b)``.  On a mesh
+    it runs per device, independent over batch and channels: the card's
+    torch (2.11) cannot pad a DTensor (ROADMAP.md C.24)."""
+    if on_mesh(x):
+        return per_device(_causal_conv, x, w, b, like=x, dims=(0, 2),
+                          remap={1: {2: 1}, 2: {2: 0}})
     k = w.shape[0]
     out = torch.zeros_like(x)
     for i in range(k):
@@ -66,7 +71,11 @@ def mamba_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     b, s, d = x.shape
     d_inner, nh, st = _dims(cfg)
     hx = norm(cfg, p["ln"], x)
-    z, xs, bmat, cmat, dt = _split_proj(cfg, hx @ p["in_proj"])
+    # on a mesh the projection can come out a partial sum over the data
+    # axes: placed on the batch first, its columns whole for the split, so
+    # the conv runs on each device's own rows (ROADMAP.md C.24)
+    proj = constrain(hx @ p["in_proj"], "batch", "seq", None)
+    z, xs, bmat, cmat, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xs, bmat, cmat], dim=-1)
     conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
     xs, bmat, cmat = torch.split(conv_out, [d_inner, st, st], dim=-1)

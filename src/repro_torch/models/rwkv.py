@@ -66,11 +66,12 @@ def _time_mix_core(cfg: ModelConfig, p, xr, xk, xv, xw, xg):
     r = (xr @ p["wr"]).reshape(b, s, h, dh)
     k = (xk @ p["wk"]).reshape(b, s, h, dh)
     v = (xv @ p["wv"]).reshape(b, s, h, dh)
-    g = xg @ p["wg"]
+    # as channel_mix's products (ROADMAP.md C.24)
+    g = constrain(xg @ p["wg"], "batch", "seq", "embed")
     with full_f32():
-        w_log = -torch.exp(p["w0"].float()
-                           + (xw.float() @ p["wlora_A"].float())
-                           @ p["wlora_B"].float())            # (B,S,D) <= 0
+        lora = constrain((xw.float() @ p["wlora_A"].float())
+                         @ p["wlora_B"].float(), "batch", "seq", "embed")
+        w_log = -torch.exp(p["w0"].float() + lora)            # (B,S,D) <= 0
     w_log = w_log.reshape(b, s, h, dh)
     return r, k, v, g, w_log
 
@@ -92,14 +93,23 @@ def time_mix(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return constrain(out, "batch", "seq", "embed")
 
 
-def channel_mix(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    xx = _shift(x)
+def _channel_ffn(p, x: torch.Tensor, xx: torch.Tensor) -> torch.Tensor:
+    """The gated squared-ReLU FFN over ``x`` and its shifted ``xx``."""
     xk = x + (xx - x) * p["mu_k"]
     xr = x + (xx - x) * p["mu_r"]
-    k = torch.square(torch.clamp_min(xk @ p["wk"], 0.0))
-    kv = k @ p["wv"]
-    r = torch.sigmoid(xr @ p["wr"])
+    # on a mesh each product may come out a partial sum, which DTensor
+    # resolves in the next pointwise op by scattering over the sequence, a
+    # layout no later product can flatten: each takes its layer's layout
+    # first, as mlp.mlp_block's (ROADMAP.md C.24)
+    k = torch.square(torch.clamp_min(
+        constrain(xk @ p["wk"], "batch", "seq", "mlp"), 0.0))
+    kv = constrain(k @ p["wv"], "batch", "seq", "embed")
+    r = torch.sigmoid(constrain(xr @ p["wr"], "batch", "seq", "embed"))
     return r * kv
+
+
+def channel_mix(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    return _channel_ffn(p, x, _shift(x))
 
 
 def rwkv_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -152,13 +162,7 @@ def rwkv_channel_mix_step(cfg: ModelConfig, p, x1: torch.Tensor, cache: Dict
                           ) -> Tuple[torch.Tensor, Dict]:
     """Channel-mix half of the decode step (ln2 + gated squared-ReLU FFN)."""
     xn2 = layer_norm(x1, p["ln2"]["w"], p["ln2"]["b"])
-    xxc = cache["shift_cm"]
-    xk2 = xn2 + (xxc - xn2) * p["cm"]["mu_k"]
-    xr2 = xn2 + (xxc - xn2) * p["cm"]["mu_r"]
-    kk = torch.square(torch.clamp_min(xk2 @ p["cm"]["wk"], 0.0))
-    kv = kk @ p["cm"]["wv"]
-    rr = torch.sigmoid(xr2 @ p["cm"]["wr"])
-    return x1 + rr * kv, {"shift_cm": xn2}
+    return x1 + _channel_ffn(p["cm"], xn2, cache["shift_cm"]), {"shift_cm": xn2}
 
 
 def rwkv_decode_step(cfg: ModelConfig, p, x1: torch.Tensor, cache: Dict

@@ -3,8 +3,8 @@
 ``examples/compile_to_calyx_torch.py``, ``examples/banking_sweep_torch.py``,
 the benchmark twins ``benchmarks/*_torch.py``, their runner
 ``benchmarks/run_torch.py`` and the script twins
-``scripts/{verify_matrix,lint_design}_torch.py``), loads neither JAX nor
-``repro``."""
+``scripts/{verify_matrix,lint_design,gen_experiments,dryrun_sweep}_torch.py``),
+loads neither JAX nor ``repro``."""
 import json
 import os
 import pathlib
@@ -51,7 +51,8 @@ for name in ("serve_batched_torch", "train_lm_torch", "compile_to_calyx_torch",
 for name in ("torch_device", "serve_bench_torch", "resilience_bench_torch",
              "model_profile_bench_torch", "roofline_report_torch",
              "kernel_bench_torch", "paper_tables_torch",
-             "banking_ablation_torch", "calyx_bench_torch", "run_torch"):
+             "banking_ablation_torch", "calyx_bench_torch", "run_torch",
+             "make_report_torch", "fix_artifacts_torch"):
     spec = importlib.util.spec_from_file_location(
         f"benchmarks.{name}", f"benchmarks/{name}.py")
     mod = importlib.util.module_from_spec(spec)
@@ -60,7 +61,8 @@ for name in ("torch_device", "serve_bench_torch", "resilience_bench_torch",
 import benchmarks.run_torch as runner
 for section in runner.SECTIONS:         # the modules the runner loads
     importlib.import_module(f"benchmarks.{section}_torch")
-for name in ("verify_matrix_torch", "lint_design_torch"):
+for name in ("verify_matrix_torch", "lint_design_torch",
+             "gen_experiments_torch", "dryrun_sweep_torch"):
     spec = importlib.util.spec_from_file_location(name, f"scripts/{name}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 repro_torch.models.all_names()          # imports the ten config modules
