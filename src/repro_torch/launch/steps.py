@@ -8,15 +8,18 @@ its ordered arguments for a cell of ``launch/shapes.py``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import contextlib
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from ..models import decode as D
+from ..models import moe as MOE
 from ..models import transformer as TF
 from ..models.common import set_sharding_rules
 from ..models.config import ModelConfig
+from ..obs.metrics import Counter, MetricsRegistry
 from ..optim import adamw
 from ..sharding.rules import ShardingStrategy, logical_rules
 
@@ -64,8 +67,78 @@ def split_rows(v: torch.Tensor, m: int):
     return [parts[i].redistribute(mesh, placements) for i in range(m)]
 
 
+# the caching allocator's counts (``torch.cuda.memory_stats``) that the
+# train step adds to its registry, a step's change at a time
+ALLOC_COUNTERS = (
+    ("train_alloc_retries_total", "num_alloc_retries",
+     "allocations that freed the allocator's cache and retried"),
+    ("train_device_mallocs_total", "num_device_alloc", "cudaMalloc calls"),
+    ("train_device_frees_total", "num_device_free", "cudaFree calls"),
+    ("train_sync_all_streams_total", "num_sync_all_streams",
+     "synchronisations of every stream by the allocator"),
+)
+
+
+class _TallyCounter(Counter):
+    """A counter whose value is its ``source()``, a running total read
+    when the registry reads the counter (``get`` or an exporter)."""
+
+    __slots__ = ("source",)
+
+    def __init__(self, name: str, help: str = "") -> None:
+        self.source = lambda: 0
+        super().__init__(name, help)
+
+    value = property(lambda self: self.source(), lambda self, v: None)
+
+
+class TrainCounters:
+    """The train step's counters in a :class:`MetricsRegistry`: steps and
+    tokens; on a CUDA device the allocator's counts and reserved bytes,
+    read once a step from its host-side statistics; the MoE assignments and
+    drops, tallied on the device (``moe.DropTally``) and read back only when
+    the registry reads them, so the step waits for nothing."""
+
+    def __init__(self, reg: MetricsRegistry) -> None:
+        self.reg = reg
+        self.steps = reg.counter("train_steps_total", "train steps run")
+        self.tokens = reg.counter("train_tokens_total",
+                                  "tokens of the steps' batches")
+        self.drops = MOE.DropTally()
+        reg._get(_TallyCounter, "moe_assignments_total",
+                 "token-to-expert assignments of the forwards").source = \
+            lambda: self.drops.assigned
+        reg._get(_TallyCounter, "moe_dropped_assignments_total",
+                 "assignments past an expert's capacity").source = \
+            lambda: self.drops.dropped()
+        self.alloc: Optional[Dict[str, int]] = None   # last statistics read
+
+    def _alloc_stats(self, device: torch.device) -> Optional[Dict[str, int]]:
+        return (torch.cuda.memory_stats(device) if device.type == "cuda"
+                else None)
+
+    def start(self, device: torch.device) -> None:
+        if self.alloc is None:
+            self.alloc = self._alloc_stats(device)
+
+    def end(self, device: torch.device, tokens: int) -> None:
+        self.steps.inc()
+        self.tokens.inc(tokens)
+        now = self._alloc_stats(device)
+        if now is None:
+            return
+        for name, key, help in ALLOC_COUNTERS:
+            self.reg.counter(name, help).inc(
+                now.get(key, 0) - self.alloc.get(key, 0))
+        self.reg.gauge("train_reserved_bytes",
+                       "bytes the caching allocator holds").set(
+            now.get("reserved_bytes.all.current", 0))
+        self.alloc = now
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    microbatches: int = 1):
+                    microbatches: int = 1,
+                    metrics: Optional[MetricsRegistry] = None):
     """Train step with optional gradient accumulation: the global batch is
     split into ``microbatches`` sequential slices, so live activations
     shrink by that factor.
@@ -78,11 +151,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     the gradients are summed in float32 in microbatch order and divided by
     their count, and the metrics are the last microbatch's, as the
     reference returns them (its mean of the microbatch losses is computed
-    and not returned)."""
+    and not returned).
+
+    With a ``metrics`` registry each step adds to the counters of
+    :class:`TrainCounters`; with ``None`` nothing is recorded."""
+    counters = TrainCounters(metrics) if metrics is not None else None
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]
-        with record_function("train_step.grads"):
+        tokens = batch["tokens"]
+        tally = contextlib.nullcontext()
+        if counters is not None:
+            counters.start(tokens.device)
+            tally = MOE.counting(counters.drops)
+        with record_function("train_step.grads"), tally:
             if microbatches <= 1:
                 metrics, grads = grad_of(cfg, params, batch)
             else:
@@ -100,6 +182,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         grads = adamw.tree_map(lambda _: next(it), params)
         with record_function("train_step.optimizer"):
             opt, om = adamw.apply_updates_(opt_cfg, params, grads, state["opt"])
+        if counters is not None:
+            counters.end(tokens.device, tokens.numel())
         return {"params": params, "opt": opt}, {**metrics, **om}
 
     return train_step

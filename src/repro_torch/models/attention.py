@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs.ranges import bwd_span, span
 from .common import (apply_rope, constrain, on_mesh, per_device, rope_freqs,
                      softcap, unshard)
 from .config import ModelConfig
@@ -167,20 +168,23 @@ def attn_block(cfg: ModelConfig, p, x: torch.Tensor, *,
                causal: bool = True, window: int = 0,
                kv_x: Optional[torch.Tensor] = None,
                attn_softcap: float = 0.0) -> torch.Tensor:
-    """Full attention sub-block (projections + mixing + output proj)."""
-    b, s, d = x.shape
-    q, k, v = qkv_proj(cfg, p, x, kv_x=kv_x)
-    if rope is not None and kv_x is None:
-        cos, sin = rope
-        q = apply_rope(q, cos[:s], sin[:s])
-        k = apply_rope(k, cos[:s], sin[:s])
-    scale = 1.0 / (cfg.head_dim ** 0.5)
-    out = chunked_attention(q, k, v, causal=causal and kv_x is None,
-                            window=window, attn_softcap=attn_softcap,
-                            scale=scale)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    out = out @ p["wo"]
-    return constrain(out, "batch", "seq", "embed")
+    """Full attention sub-block (projections + mixing + output proj), in
+    the ranges ``attn`` and ``attn.bwd`` (``obs.ranges``)."""
+    with span("attn"):
+        x, mark = bwd_span("attn", x)
+        b, s, d = x.shape
+        q, k, v = qkv_proj(cfg, p, x, kv_x=kv_x)
+        if rope is not None and kv_x is None:
+            cos, sin = rope
+            q = apply_rope(q, cos[:s], sin[:s])
+            k = apply_rope(k, cos[:s], sin[:s])
+        scale = 1.0 / (cfg.head_dim ** 0.5)
+        out = chunked_attention(q, k, v, causal=causal and kv_x is None,
+                                window=window, attn_softcap=attn_softcap,
+                                scale=scale)
+        out = out.transpose(1, 2).reshape(b, s, -1)
+        out = out @ p["wo"]
+        return mark(constrain(out, "batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -218,50 +222,51 @@ def attn_decode(cfg: ModelConfig, p, x1: torch.Tensor, cache: dict, pos,
     window layers): slot i holds absolute position pos - ((pos - i) mod L).
 
     Writes the new key and value into ``cache`` in place and returns
-    (attn output (B,1,D), cache).
+    (attn output (B,1,D), cache), in the range ``attn``.
     """
-    b, _, d = x1.shape
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = h // hkv
-    pos = int(pos)
-    dev = x1.device
-    q, k1, v1 = qkv_proj(cfg, p, x1)
-    if cfg.rope_theta:
-        posv = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
-        cos, sin = rope_freqs(dh, cfg.rope_theta, posv)
-        q = apply_rope(q, cos, sin)
-        k1 = apply_rope(k1, cos, sin)
-    smax = cache["k"].shape[2]
-    # ring: floor-mod (C.4); otherwise the write start clamps into the cache
-    # as dynamic_update_slice's does (C.8)
-    slot = pos % smax if ring else min(max(pos, 0), smax - 1)
-    if "k_scale" in cache:
-        k_q, k_s = _quant(k1)
-        v_q, v_s = _quant(v1)
-        cache["k"][:, :, slot] = k_q[:, :, 0]
-        cache["v"][:, :, slot] = v_q[:, :, 0]
-        cache["k_scale"][:, :, slot] = k_s[:, :, 0]
-        cache["v_scale"][:, :, slot] = v_s[:, :, 0]
-        kc = cache["k"].float() * cache["k_scale"]
-        vc = cache["v"].float() * cache["v_scale"]
-    else:
-        cache["k"][:, :, slot] = k1[:, :, 0].to(cache["k"].dtype)
-        cache["v"][:, :, slot] = v1[:, :, 0].to(cache["v"].dtype)
-        kc, vc = cache["k"], cache["v"]
-    k_pos = torch.arange(smax, device=dev)
-    if ring:
-        abs_pos = pos - torch.remainder(pos - k_pos, smax)
-        mask = abs_pos >= 0
-        if window:
-            mask &= (pos - abs_pos) < window
-    else:
-        mask = k_pos <= pos
-        if window:
-            mask &= (pos - k_pos) < window
-    qg = q.reshape(b, hkv, g, 1, dh)
-    out = per_device(functools.partial(attend_cache,
-                                       attn_softcap=attn_softcap),
-                     qg, kc, vc, mask, like=kc)
-    out = out.reshape(b, h, 1, dh).transpose(1, 2).reshape(b, 1, -1)
-    out = out.to(x1.dtype) @ p["wo"]
-    return out, cache
+    with span("attn"):
+        b, _, d = x1.shape
+        h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        g = h // hkv
+        pos = int(pos)
+        dev = x1.device
+        q, k1, v1 = qkv_proj(cfg, p, x1)
+        if cfg.rope_theta:
+            posv = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+            cos, sin = rope_freqs(dh, cfg.rope_theta, posv)
+            q = apply_rope(q, cos, sin)
+            k1 = apply_rope(k1, cos, sin)
+        smax = cache["k"].shape[2]
+        # ring: floor-mod (C.4); otherwise the write start clamps into the
+        # cache as dynamic_update_slice's does (C.8)
+        slot = pos % smax if ring else min(max(pos, 0), smax - 1)
+        if "k_scale" in cache:
+            k_q, k_s = _quant(k1)
+            v_q, v_s = _quant(v1)
+            cache["k"][:, :, slot] = k_q[:, :, 0]
+            cache["v"][:, :, slot] = v_q[:, :, 0]
+            cache["k_scale"][:, :, slot] = k_s[:, :, 0]
+            cache["v_scale"][:, :, slot] = v_s[:, :, 0]
+            kc = cache["k"].float() * cache["k_scale"]
+            vc = cache["v"].float() * cache["v_scale"]
+        else:
+            cache["k"][:, :, slot] = k1[:, :, 0].to(cache["k"].dtype)
+            cache["v"][:, :, slot] = v1[:, :, 0].to(cache["v"].dtype)
+            kc, vc = cache["k"], cache["v"]
+        k_pos = torch.arange(smax, device=dev)
+        if ring:
+            abs_pos = pos - torch.remainder(pos - k_pos, smax)
+            mask = abs_pos >= 0
+            if window:
+                mask &= (pos - abs_pos) < window
+        else:
+            mask = k_pos <= pos
+            if window:
+                mask &= (pos - k_pos) < window
+        qg = q.reshape(b, hkv, g, 1, dh)
+        out = per_device(functools.partial(attend_cache,
+                                           attn_softcap=attn_softcap),
+                         qg, kc, vc, mask, like=kc)
+        out = out.reshape(b, h, 1, dh).transpose(1, 2).reshape(b, 1, -1)
+        out = out.to(x1.dtype) @ p["wo"]
+        return out, cache

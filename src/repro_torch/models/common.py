@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs.ranges import bwd_span, span
 from .config import ModelConfig
 
 
@@ -246,15 +247,17 @@ def embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     them with atomics on the CPU (a restarted training run then
     replays other bits).  Under rules, a table that takes gradients is
     gathered whole first: DTensor's masked lookup on a vocab-sharded table
-    has no backward (``ROADMAP.md`` C.20)."""
-    table = params["embed"]
-    if _MESH is not None and table.requires_grad:
-        x = _embed_replicated(tokens, table)
-    else:
-        x = F.embedding(tokens, table)
-    if cfg.name.startswith("gemma"):
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    return constrain(x, "batch", "seq", "embed")
+    has no backward (``ROADMAP.md`` C.20).  In the ranges ``embed`` and
+    ``embed.bwd``, whose input is the table."""
+    with span("embed"):
+        table, mark = bwd_span("embed", params["embed"])
+        if _MESH is not None and table.requires_grad:
+            x = _embed_replicated(tokens, table)
+        else:
+            x = F.embedding(tokens, table)
+        if cfg.name.startswith("gemma"):
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        return mark(constrain(x, "batch", "seq", "embed"))
 
 
 class _GradLikeInput(torch.autograd.Function):

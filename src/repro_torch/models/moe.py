@@ -21,16 +21,26 @@ lower expert index, as ``jax.lax.top_k`` does (a stable descending sort;
 onto the last capacity slot with an add (``index_put_(...,
 accumulate=True)``), never an overwrite.  The router runs in float32
 whatever the model dtype, in full float32 (``device.full_f32``).
+
+The block runs in the profiler ranges ``moe`` and ``moe.bwd``, and its
+steps in ``moe.router``, ``moe.assign``, ``moe.dispatch``, ``moe.experts``
+and ``moe.combine`` (``obs.ranges``).  While a :class:`DropTally` is
+installed (:func:`counting`), each forward of ``_assign`` adds its
+assignments and those kept to it; a recomputation under remat adds
+nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..device import full_f32
+from ..obs.ranges import bwd_span, span
 from . import common as _common
 from .common import activation, constrain
 from .config import ModelConfig
@@ -41,21 +51,22 @@ def _router(cfg: ModelConfig, p, x2: torch.Tensor, aux: bool = True):
     """x2: (T, D) -> (probs (T,k), idx (T,k), aux metrics).  ``aux=False``
     skips the two auxiliary losses (an empty dict), which the decode step
     discards, as the reference's jitted step lets XLA drop them."""
-    with full_f32():
-        logits = x2.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    k = cfg.experts_per_token
-    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_i = srt[:, :k], order[:, :k]
-    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
-    if not aux:
-        return top_p, top_i, {}
-    e = cfg.num_experts
-    me = F.one_hot(top_i, e).sum(1).float().mean(dim=0)       # load/expert
-    pe = probs.mean(dim=0)
-    moe_aux = e * torch.sum(me / k * pe)
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return top_p, top_i, {"moe_aux": moe_aux, "moe_zloss": zloss}
+    with span("moe.router"):
+        with full_f32():
+            logits = x2.float() @ p["router"].float()
+        probs = torch.softmax(logits, dim=-1)
+        k = cfg.experts_per_token
+        srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+        top_p, top_i = srt[:, :k], order[:, :k]
+        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+        if not aux:
+            return top_p, top_i, {}
+        e = cfg.num_experts
+        me = F.one_hot(top_i, e).sum(1).float().mean(dim=0)   # load/expert
+        pe = probs.mean(dim=0)
+        moe_aux = e * torch.sum(me / k * pe)
+        zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        return top_p, top_i, {"moe_aux": moe_aux, "moe_zloss": zloss}
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -64,27 +75,68 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
     return max(8, -(-c // 8) * 8)   # pad to lane multiple
 
 
+class DropTally:
+    """Assignments and kept assignments of the MoE forwards while installed
+    (:func:`counting`), running totals.  The kept ones are summed on the
+    device, so adding waits for nothing; :meth:`dropped` reads them back."""
+
+    def __init__(self) -> None:
+        self.assigned = 0
+        self.kept: Optional[torch.Tensor] = None
+
+    def add(self, keep: torch.Tensor) -> None:
+        self.assigned += keep.numel()
+        n = keep.sum()
+        self.kept = n if self.kept is None else self.kept.add_(n)
+
+    def dropped(self) -> int:
+        """Assignments past an expert's capacity; waits for the forwards it
+        counts."""
+        return self.assigned - (0 if self.kept is None else int(self.kept))
+
+
+_TALLY: contextvars.ContextVar = contextvars.ContextVar("moe_tally",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def counting(tally: DropTally) -> Iterator[DropTally]:
+    """Add every MoE forward's assignments to ``tally`` inside the block."""
+    token = _TALLY.set(tally)
+    try:
+        yield tally
+    finally:
+        _TALLY.reset(token)
+
+
 def _assign(cfg: ModelConfig, top_p, top_i, cap: int):
     """The flat (T*k,) assignment stream, token-major: (expert, gate, kept,
     slot), the slot inside each expert's capacity buffer being the number of
     earlier assignments to it, clamped to the last."""
-    eid = top_i.reshape(-1)
-    gate = top_p.reshape(-1)
-    oh = F.one_hot(eid, cfg.num_experts)                      # (T*k, E)
-    pos = torch.cumsum(oh, dim=0) - oh                        # exclusive
-    pos = torch.take_along_dim(pos, eid[:, None], dim=1)[:, 0]
-    return eid, gate, pos < cap, torch.clamp_max(pos, cap - 1)
+    with span("moe.assign"):
+        eid = top_i.reshape(-1)
+        gate = top_p.reshape(-1)
+        oh = F.one_hot(eid, cfg.num_experts)                  # (T*k, E)
+        pos = torch.cumsum(oh, dim=0) - oh                    # exclusive
+        pos = torch.take_along_dim(pos, eid[:, None], dim=1)[:, 0]
+        keep = pos < cap
+        tally = _TALLY.get()
+        # a forward, not remat's recomputation inside a backward
+        if tally is not None and torch._C._current_graph_task_id() == -1:
+            tally.add(keep)
+        return eid, gate, keep, torch.clamp_max(pos, cap - 1)
 
 
 def _expert_ffn(cfg: ModelConfig, p, xe: torch.Tensor) -> torch.Tensor:
     """xe: (E, C, D) -> (E, C, D): dense over the leading expert 'banks'."""
-    h = torch.bmm(xe, p["w1"])
-    if gated_mlp(cfg):
-        g = torch.bmm(xe, p["wg"])
-        h = activation(cfg, g) * h
-    else:
-        h = activation(cfg, h)
-    return constrain(torch.bmm(h, p["w2"]), "experts", "capacity", None)
+    with span("moe.experts"):
+        h = torch.bmm(xe, p["w1"])
+        if gated_mlp(cfg):
+            g = torch.bmm(xe, p["wg"])
+            h = activation(cfg, g) * h
+        else:
+            h = activation(cfg, h)
+        return constrain(torch.bmm(h, p["w2"]), "experts", "capacity", None)
 
 
 def moe_block_banked(cfg: ModelConfig, p, x: torch.Tensor, aux: bool = True
@@ -100,15 +152,17 @@ def moe_block_banked(cfg: ModelConfig, p, x: torch.Tensor, aux: bool = True
     eid, gate, keep, pos_c = _assign(cfg, top_p, top_i, cap)
 
     # dropped assignments add zero rows onto the last slot (C.12)
-    x_rep = torch.repeat_interleave(x2, k, dim=0)             # (T*k, D)
-    upd = x_rep * keep[:, None].to(x.dtype)
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((eid, pos_c), upd, accumulate=True)
+    with span("moe.dispatch"):
+        x_rep = torch.repeat_interleave(x2, k, dim=0)         # (T*k, D)
+        upd = x_rep * keep[:, None].to(x.dtype)
+        buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+        buf.index_put_((eid, pos_c), upd, accumulate=True)
     ye = _expert_ffn(cfg, p, buf)
-    y_rows = ye[eid, pos_c]                                   # (T*k, D)
-    y_rows = y_rows.float() * (gate * keep.float())[:, None]
-    y2 = y_rows.reshape(t, k, d).sum(dim=1)
-    return y2.to(x.dtype).reshape(b, s, d), aux_m
+    with span("moe.combine"):
+        y_rows = ye[eid, pos_c]                               # (T*k, D)
+        y_rows = y_rows.float() * (gate * keep.float())[:, None]
+        y2 = y_rows.reshape(t, k, d).sum(dim=1)
+        return y2.to(x.dtype).reshape(b, s, d), aux_m
 
 
 def moe_block_gather(cfg: ModelConfig, p, x: torch.Tensor, aux: bool = True
@@ -194,24 +248,28 @@ def moe_block_banked_ep(cfg: ModelConfig, p, x: torch.Tensor, mesh,
         cap = capacity(cfg, tl)                       # local capacity
         eid, gate, keep, pos_c = _assign(cfg, top_p, top_i, cap)
 
-        mine = (eid >= m * e_loc) & (eid < (m + 1) * e_loc) & keep
-        loc_e = torch.where(mine, eid - m * e_loc, 0)
-        x_rep = torch.repeat_interleave(x2, k, dim=0)
-        upd = x_rep * mine[:, None].to(xl.dtype)
-        buf = torch.zeros((e_loc, cap, d), dtype=xl.dtype, device=xl.device)
-        buf.index_put_((loc_e, pos_c), upd, accumulate=True)
+        with span("moe.dispatch"):
+            mine = (eid >= m * e_loc) & (eid < (m + 1) * e_loc) & keep
+            loc_e = torch.where(mine, eid - m * e_loc, 0)
+            x_rep = torch.repeat_interleave(x2, k, dim=0)
+            upd = x_rep * mine[:, None].to(xl.dtype)
+            buf = torch.zeros((e_loc, cap, d), dtype=xl.dtype,
+                              device=xl.device)
+            buf.index_put_((loc_e, pos_c), upd, accumulate=True)
 
-        h = torch.bmm(buf, w1)
-        if gated:
-            h = activation(cfg, torch.bmm(buf, wg)) * h
-        else:
-            h = activation(cfg, h)
-        ye = torch.bmm(h, w2)
+        with span("moe.experts"):
+            h = torch.bmm(buf, w1)
+            if gated:
+                h = activation(cfg, torch.bmm(buf, wg)) * h
+            else:
+                h = activation(cfg, h)
+            ye = torch.bmm(h, w2)
 
-        y_rows = ye[loc_e, pos_c]
-        w_gate = (gate * mine.float())[:, None]
-        y2 = (y_rows.float() * w_gate).reshape(tl, k, d).sum(dim=1)
-        y2 = funcol.all_reduce(y2, "sum", group)      # combine experts
+        with span("moe.combine"):
+            y_rows = ye[loc_e, pos_c]
+            w_gate = (gate * mine.float())[:, None]
+            y2 = (y_rows.float() * w_gate).reshape(tl, k, d).sum(dim=1)
+            y2 = funcol.all_reduce(y2, "sum", group)  # combine experts
         aux_m = {kk: _axis_mean(_axis_mean(vv, mesh, batch_axes), mesh,
                                 model_axis)
                  for kk, vv in aux_m.items()}
@@ -232,11 +290,17 @@ def moe_block_banked_ep(cfg: ModelConfig, p, x: torch.Tensor, mesh,
 
 def moe_block(cfg: ModelConfig, p, x: torch.Tensor, aux: bool = True
               ) -> Tuple[torch.Tensor, Dict]:
-    if cfg.moe_dispatch == "banked":
-        ep = _ep_context()
-        if ep is not None and cfg.num_experts % ep[3] == 0:
-            mesh, model_axis, batch_axes, tp = ep
-            return moe_block_banked_ep(cfg, p, x, mesh, model_axis,
-                                       batch_axes, tp, aux)
-        return moe_block_banked(cfg, p, x, aux)
-    return moe_block_gather(cfg, p, x, aux)
+    """The block in the ranges ``moe`` and ``moe.bwd``."""
+    with span("moe"):
+        x, mark = bwd_span("moe", x)
+        if cfg.moe_dispatch != "banked":
+            y, aux_m = moe_block_gather(cfg, p, x, aux)
+        else:
+            ep = _ep_context()
+            if ep is not None and cfg.num_experts % ep[3] == 0:
+                mesh, model_axis, batch_axes, tp = ep
+                y, aux_m = moe_block_banked_ep(cfg, p, x, mesh, model_axis,
+                                               batch_axes, tp, aux)
+            else:
+                y, aux_m = moe_block_banked(cfg, p, x, aux)
+        return mark(y), aux_m

@@ -31,6 +31,7 @@ from . import attention as A
 from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
+from ..obs.ranges import bwd_span, span
 from .common import embed, lm_logits, norm, rope_freqs, sinusoid_pos
 from .config import ModelConfig
 from .mlp import mlp_block
@@ -214,33 +215,39 @@ def chunked_ce(cfg: ModelConfig, params, x: torch.Tensor,
     logits formed on its own (and, when gradients are being taken, formed
     again in the backward pass, as the reference's ``jax.checkpoint`` of
     the chunk),
-    summed in the reference's chunk order."""
-    b, s, d = x.shape
-    tgt = torch.cat([tokens[:, 1:], torch.zeros((b, 1), dtype=tokens.dtype,
-                                                device=tokens.device)], dim=1)
-    valid = torch.ones((b, s), device=x.device)
-    valid[:, -1] = 0.0
-    if mask is not None:
-        valid = valid * mask.float()
-    c = min(chunk, s)
-    n = s // c if s % c == 0 else 1
-    c = s // n
+    summed in the reference's chunk order.  In the ranges ``lm_loss`` and
+    ``lm_loss.bwd`` (the chunks' recomputation inside the latter)."""
+    with span("lm_loss"):
+        x, mark = bwd_span("lm_loss", x)
+        b, s, d = x.shape
+        tgt = torch.cat([tokens[:, 1:],
+                         torch.zeros((b, 1), dtype=tokens.dtype,
+                                     device=tokens.device)], dim=1)
+        valid = torch.ones((b, s), device=x.device)
+        valid[:, -1] = 0.0
+        if mask is not None:
+            valid = valid * mask.float()
+        c = min(chunk, s)
+        n = s // c if s % c == 0 else 1
+        c = s // n
 
-    def body(xc, tc, vc):
-        logits = lm_logits(cfg, params, xc)      # (B, c, V)
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.take_along_dim(lp, tc[..., None].long(), dim=-1)[..., 0]
-        return (nll * vc).sum()
+        def body(xc, tc, vc):
+            logits = lm_logits(cfg, params, xc)      # (B, c, V)
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            nll = -torch.take_along_dim(lp, tc[..., None].long(),
+                                        dim=-1)[..., 0]
+            return (nll * vc).sum()
 
-    grads = _taking_grads(params, x)
-    total = torch.zeros((), device=x.device)
-    for i in range(n):
-        xc, tc, vc = (t[:, i * c:(i + 1) * c] for t in (x, tgt, valid))
-        if grads:
-            total = total + checkpoint(body, xc, tc, vc, use_reentrant=False)
-        else:
-            total = total + body(xc, tc, vc)
-    return total / torch.clamp_min(valid.sum(), 1.0)
+        grads = _taking_grads(params, x)
+        total = torch.zeros((), device=x.device)
+        for i in range(n):
+            xc, tc, vc = (t[:, i * c:(i + 1) * c] for t in (x, tgt, valid))
+            if grads:
+                total = total + checkpoint(body, xc, tc, vc,
+                                           use_reentrant=False)
+            else:
+                total = total + body(xc, tc, vc)
+        return mark(total / torch.clamp_min(valid.sum(), 1.0))
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict

@@ -440,3 +440,52 @@ def test_calyx_bench_oracle_on_the_card(tmp_path):
     for rec in data["records"]:
         assert rec["design"] == "matmul" and rec["cycles_match"]
         assert 0.0 <= rec["oracle_max_abs_err"] <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ranges_only_session_on_the_card(tmp_path):
+    """granite-moe-1b-a400m reduced with remat, two train steps in
+    ``obs.ranges.profile``: the trace holds kernels, the runtime's launches
+    and the program's ranges of the forward, the recomputation and the
+    backward, and no operator; the harness's exclusive attribution
+    (``perfbench/attribution.py``) charges every kernel to one range or to
+    ``unranged``, adding up to the busy time.  With a registry the step
+    reads the allocator's counters."""
+    import dataclasses
+    import json
+    _card()
+    from perfbench import attribution
+    from repro_torch.launch import steps
+    from repro_torch.models import get_config, params
+    from repro_torch.obs import MetricsRegistry, ranges
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                              remat=True)
+    prm = params.init_params(cfg, seed=0, device="cuda")
+    state = {"params": prm, "opt": adamw.init_state(prm)}
+    reg = MetricsRegistry()
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(), metrics=reg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda")
+    state, m = step(state, {"tokens": tokens})
+    float(m["loss"])
+    path = str(tmp_path / "ranges.json")
+    with ranges.profile("cuda", path):
+        for _ in range(2):
+            state, m = step(state, {"tokens": tokens})
+            float(m["loss"])
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    cats = {e.get("cat") for e in events}
+    assert {"kernel", "cuda_runtime", "user_annotation"} <= cats
+    assert "cpu_op" not in cats
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"train_step.grads", "train_step.optimizer", "embed.bwd", "attn",
+            "attn.bwd", "moe.assign", "moe.bwd", "lm_loss.bwd"} <= names
+    s = attribution.attribute(events, events_s=None)
+    charged = sum(r["device_s"] for r in s["ranges"].values())
+    assert charged == pytest.approx(s["busy_s"], rel=1e-9)
+    assert s["ranges"]["attn.bwd"]["device_s"] > 0
+    assert s["ranges"]["moe.assign"]["device_s"] > 0
+    assert reg.get("train_steps_total").value == 3
+    assert reg.get("train_reserved_bytes").value > 0
+    assert "train_device_mallocs_total" in reg.names()
