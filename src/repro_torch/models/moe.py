@@ -19,8 +19,12 @@ it takes the banked path, as the reference does.  Two traps are kept
 lower expert index, as ``jax.lax.top_k`` does (a stable descending sort;
 ``torch.topk`` promises no order), and dropped assignments scatter zero rows
 onto the last capacity slot with an add (``index_put_(...,
-accumulate=True)``), never an overwrite.  The router runs in float32
-whatever the model dtype, in full float32 (``device.full_f32``).
+accumulate=True)``), never an overwrite.  An assignment's slot is its
+rank, in token-major order, among its expert's assignments (``_assign``:
+a stable sort of the expert ids), so an expert drops its latest
+assignments, as the reference's exclusive cumulative sum does.  The router
+runs in float32 whatever the model dtype, in full float32
+(``device.full_f32``).
 
 The block runs in the profiler ranges ``moe`` and ``moe.bwd``, and its
 steps in ``moe.router``, ``moe.assign``, ``moe.dispatch``, ``moe.experts``
@@ -109,16 +113,22 @@ def counting(tally: DropTally) -> Iterator[DropTally]:
         _TALLY.reset(token)
 
 
-def _assign(cfg: ModelConfig, top_p, top_i, cap: int):
+def _assign(top_p, top_i, cap: int):
     """The flat (T*k,) assignment stream, token-major: (expert, gate, kept,
     slot), the slot inside each expert's capacity buffer being the number of
-    earlier assignments to it, clamped to the last."""
+    earlier assignments to it, clamped to the last.
+
+    The slot is an assignment's rank in its expert's run of the stably
+    sorted expert ids: the sort keeps token-major order inside each run, and
+    ``searchsorted`` finds where each run starts.  Exact integer arithmetic
+    in O(T*k) memory, with no read back to the host."""
     with span("moe.assign"):
         eid = top_i.reshape(-1)
         gate = top_p.reshape(-1)
-        oh = F.one_hot(eid, cfg.num_experts)                  # (T*k, E)
-        pos = torch.cumsum(oh, dim=0) - oh                    # exclusive
-        pos = torch.take_along_dim(pos, eid[:, None], dim=1)[:, 0]
+        srt, order = torch.sort(eid, stable=True)
+        rank = (torch.arange(eid.numel(), device=eid.device)
+                - torch.searchsorted(srt, srt))
+        pos = torch.empty_like(eid).scatter_(0, order, rank)
         keep = pos < cap
         tally = _TALLY.get()
         # a forward, not remat's recomputation inside a backward
@@ -149,7 +159,7 @@ def moe_block_banked(cfg: ModelConfig, p, x: torch.Tensor, aux: bool = True
     cap = capacity(cfg, t)
     x2 = x.reshape(t, d)
     top_p, top_i, aux_m = _router(cfg, p, x2, aux)
-    eid, gate, keep, pos_c = _assign(cfg, top_p, top_i, cap)
+    eid, gate, keep, pos_c = _assign(top_p, top_i, cap)
 
     # dropped assignments add zero rows onto the last slot (C.12)
     with span("moe.dispatch"):
@@ -246,7 +256,7 @@ def moe_block_banked_ep(cfg: ModelConfig, p, x: torch.Tensor, mesh,
         x2 = xl.reshape(tl, d)
         top_p, top_i, aux_m = _router(cfg, {"router": router}, x2, aux)
         cap = capacity(cfg, tl)                       # local capacity
-        eid, gate, keep, pos_c = _assign(cfg, top_p, top_i, cap)
+        eid, gate, keep, pos_c = _assign(top_p, top_i, cap)
 
         with span("moe.dispatch"):
             mine = (eid >= m * e_loc) & (eid < (m + 1) * e_loc) & keep

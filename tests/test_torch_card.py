@@ -1,7 +1,8 @@
 """The port on the card (``-m cuda``; these tests skip without one): its CUDA
-kernels, the serve step of the decode path, a train step with its
-checkpoint, the dry run of a reduced cell, the op counter's exact mesh
-counts with fake CUDA tensors and the Calyx matrix's torch oracle.
+kernels, the serve step of the decode path, the MoE capacity assignment,
+a train step with its checkpoint, the dry run of a reduced cell, the op
+counter's exact mesh counts with fake CUDA tensors and the Calyx matrix's
+torch oracle.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card.py
 
@@ -273,6 +274,55 @@ def test_hybrid_and_moe_serve_step_on_the_card_match_the_cpu(name):
         assert cache["mamba"]["h"].dtype == torch.float32
         assert cache["mamba"]["conv"].dtype == torch.bfloat16
         assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,tokens", [("granite-moe-1b-a400m", 16_384),
+                                         ("olmoe-1b-7b", 128)])
+def test_moe_assign_on_the_card_matches_the_cpu(name, tokens):
+    """The MoE capacity assignment at the train cell's shape (16,384 tokens
+    × top-8 of 32 experts) and olmoe-1b-7b's decode shape (128 slots × top-8
+    of 64), ids skewed so that experts drop: the card's expert, gate, kept
+    and clamped slot equal the CPU's; two calls on the same ids give the
+    same slots, as the forward and remat's recomputation must; the calls
+    wait on nothing from the host; and no (T*k, E) tensor is held.  Prints
+    the call's CUDA-event time."""
+    _card()
+    from repro_torch.models import get_config, moe
+    cfg = get_config(name)
+    e, k = cfg.num_experts, cfg.experts_per_token
+    cap = moe.capacity(cfg, tokens)
+    g = torch.Generator().manual_seed(tokens)
+    scores = torch.rand(tokens, e, generator=g) + torch.linspace(0, 1, e)
+    top_i = scores.argsort(dim=1, descending=True)[:, :k]
+    top_p = torch.softmax(scores, dim=1).gather(1, top_i)
+    want = moe._assign(top_p, top_i, cap)
+    assert not bool(want[2].all())                      # experts drop
+    x_p, x_i = top_p.cuda(), top_i.cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [moe._assign(x_p, x_i, cap) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # less than one int64 one-hot of the assignments
+    assert torch.cuda.max_memory_allocated() - base < tokens * k * e * 8
+    for run in got:
+        for a, b in zip(run, want):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    n = 50
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(n):
+        moe._assign(x_p, x_i, cap)
+    t1.record()
+    torch.cuda.synchronize()
+    print(f"moe._assign {name} ({tokens * k} x {e}): "
+          f"{t0.elapsed_time(t1) / n:.4f} ms a call "
+          f"({torch.cuda.get_device_name(0)})")
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ auxiliary losses at 1e-5 of the output's scale (max |want|, at least 1),
 bf16 at 2e-2.  Also the two traps of ``ROADMAP.md`` C.12: exact router ties
 select the lowest expert indices, as ``jax.lax.top_k`` does, and dropped
 assignments (a capacity factor that forces drops) add zero rows onto the
-last slot, so the output is the reference's.
+last slot, so the output is the reference's.  ``_assign``'s slots, bit for
+bit, against a plain loop's exclusive counts: 4-128 experts, 1-131,072
+assignments, uniform, Zipf and single-expert ids, with and without drops.
 """
 import dataclasses
 
@@ -193,3 +195,52 @@ def test_dropped_assignments_match_reference(factor):
     full, _ = MOE.moe_block(dataclasses.replace(cfg, moe_capacity_factor=8.0),
                             p, x)
     assert float((full - y).abs().max()) > 1e-3            # the drops show
+
+
+# == the capacity assignment =================================================
+
+
+def _exclusive_counts(eid):
+    """Each assignment's count of earlier assignments to its expert."""
+    seen, out = {}, []
+    for e in eid:
+        out.append(seen.get(e, 0))
+        seen[e] = out[-1] + 1
+    return out
+
+
+def _ids(e, n, kind):
+    """(n,) expert ids: uniform, Zipf-skewed onto a shuffled ranking of the
+    experts, or all on one expert."""
+    rng = np.random.default_rng([e, n, len(kind)])
+    if kind == "uniform":
+        return rng.integers(0, e, n)
+    if kind == "zipf":
+        w = 1.0 / np.arange(1, e + 1) ** 1.1
+        return rng.permutation(e)[rng.choice(e, n, p=w / w.sum())]
+    return np.full(n, e // 2)
+
+
+@pytest.mark.parametrize("room", ["drops", "keeps_all"])
+@pytest.mark.parametrize("kind", ["uniform", "zipf", "one_expert"])
+@pytest.mark.parametrize("n", [1, 7, 1024, 131_072])
+@pytest.mark.parametrize("e", [4, 32, 64, 128])
+def test_assign_matches_exclusive_counts(e, n, kind, room):
+    """``_assign``'s slot is the number of earlier assignments to the same
+    expert in token-major order, bit for bit, with ``keep`` and the clamped
+    slot derived from it; expert ids and gates pass through."""
+    ids = _ids(e, n, kind)
+    k = 8 if n % 8 == 0 else 1
+    top_i = torch.from_numpy(ids).reshape(n // k, k)
+    top_p = torch.from_numpy(
+        np.random.default_rng(n).random(n, dtype=np.float32)).reshape(n // k, k)
+    cap = max(1, n // (2 * e)) if room == "drops" else n
+    eid, gate, keep, pos_c = MOE._assign(top_p, top_i, cap)
+    want = torch.tensor(_exclusive_counts(ids.tolist()), dtype=torch.int64)
+    assert torch.equal(eid, top_i.reshape(-1))
+    assert torch.equal(gate, top_p.reshape(-1))
+    assert torch.equal(keep, want < cap)
+    assert pos_c.dtype == torch.int64
+    assert torch.equal(pos_c, torch.clamp_max(want, cap - 1))
+    if n > e * cap:                                  # drops by pigeonhole
+        assert not bool(keep.all())
