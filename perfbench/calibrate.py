@@ -82,8 +82,9 @@ def main(argv=None, *, device=None, overrides=None) -> int:
     if overrides:
         c.update(overrides.get("config", {}))
         spec.update(overrides.get("traffic", {}))
-    port_cfg = dataclasses.replace(get_config(c["port_config"]), **{
-        k: c[k] for k in cells.PORT_KEYS if k in c})
+    port_cfg = get_config(c["port_config"])
+    port_cfg = dataclasses.replace(port_cfg, **{
+        k: c[k] for k in cells.port_keys(c, port_cfg)})
     dev = torch.device(device or "cuda")
     dtype = getattr(torch, c["dtype"])
     D = cells.driver(spec["kind"])

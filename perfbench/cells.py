@@ -4,11 +4,18 @@ A workload names a configuration (``configs/<config>.json``) and a traffic
 mix (``traffic/<traffic>.json``); the mix's ``kind`` names the driver that
 plays it (``<kind>_driver.py``); the comparison's limits are in
 ``limits/<workload>.json``; each per-layer metric is read by
-``metrics/<metric>.py``.  Adding a cell, a mix, a kind of traffic, a
-configuration or a metric adds files and entries: nothing here names one.
+``metrics/<metric>.py``.  The configuration's ``reference`` key names the
+module of ``reference/`` that holds its architecture: its weight tree, its
+loss and, for serving, its logits (``reference/common.py``); the FLOP
+counts are taken from that tree (``counts.py``).  So a configuration of an
+architecture the benchmark has not run is a configuration file and a
+reference module.  Adding a cell, a mix, a kind of traffic, a
+configuration, an architecture or a metric adds files and entries: nothing
+here names one.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -73,19 +80,40 @@ def driver(kind: str):
     return importlib.import_module(f"perfbench.{kind}_driver")
 
 
-# keys of a configuration file that are the port's ModelConfig fields
+def reference(c: Dict):
+    """The module of ``reference/`` that the configuration's ``reference``
+    key names (``perfbench/reference/<module>.py``)."""
+    m = re.fullmatch(r"perfbench/reference/([a-z][a-z0-9_]{0,63})\.py",
+                     c.get("reference", ""))
+    if not m or not os.path.exists(os.path.join(HERE, "reference",
+                                                m.group(1) + ".py")):
+        raise KeyError(f"reference {c.get('reference')!r} is no module of "
+                       "perfbench/reference/")
+    return importlib.import_module(f"perfbench.reference.{m.group(1)}")
+
+
+# the port keys that the MoE configuration files hold; the harness compares
+# ``port_keys``, a superset, and ``scripts/torch_train_ranges.py`` still
+# reads this tuple
 PORT_KEYS = ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim",
              "d_ff", "vocab_size", "num_experts", "experts_per_token",
              "moe_capacity_factor", "rope_theta", "norm_eps", "tie_embeddings",
              "act", "dtype", "family", "moe_dispatch")
 
 
+def port_keys(c: Dict, port_cfg) -> List[str]:
+    """The keys of the configuration file that are fields of the port's
+    config ``port_cfg`` (a dataclass), in field order."""
+    return [f.name for f in dataclasses.fields(port_cfg) if f.name in c]
+
+
 def check_port_config(c: Dict, port_cfg) -> List[str]:
     """Where the configuration file and the port's registered config
-    differ: (key, file value, port value) lines; empty when they agree."""
+    differ, over every key of the file that is a field of the port's
+    config: (key, file value, port value) lines; empty when they agree."""
     bad = []
-    for k in PORT_KEYS:
-        if k in c and c[k] != getattr(port_cfg, k):
+    for k in port_keys(c, port_cfg):
+        if c[k] != getattr(port_cfg, k):
             bad.append(f"{k}: file {c[k]!r}, port {getattr(port_cfg, k)!r}")
     return bad
 

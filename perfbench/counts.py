@@ -7,7 +7,13 @@ mathematics asks for.  A roofline share is the least time these allow over
 the device time the trace reads, so it cannot pass 100% unless a count is
 too high or the device time misses part of the work.
 
-A configuration here is the dict of ``perfbench/configs/<name>.json``.
+A configuration here is the dict of ``perfbench/configs/<name>.json``.  The
+parameters a token multiplies and the training step's FLOPs are taken from
+the weight tree that its reference module writes (``weights.shapes``), so
+they hold for any architecture whose tree marks its products; the serving
+counts (``attn_decode_call``, ``moe_call``, ``serve_token_flops``) are
+written for grouped-query attention and experts in every layer, and hold
+only for such a configuration until a serving cell of another one comes.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import math
 from typing import Dict
 
 import numpy as np
+
+from perfbench import weights
 
 # NVIDIA H100 SXM5 data sheet, dense rates without sparsity, at 700 W.
 PEAKS = {
@@ -48,13 +56,25 @@ def expert_params(c: Dict) -> int:
     return 3 * c["d_model"] * c["d_ff"]
 
 
-def active_params(c: Dict) -> int:
-    """Parameters a token multiplies: per layer the attention projections,
-    the router and ``experts_per_token`` experts; and the LM head.  The
-    embedding is a lookup and multiplies nothing."""
-    per_layer = (attn_proj_params(c) + c["d_model"] * c["num_experts"]
-                 + c["experts_per_token"] * expert_params(c))
-    return c["num_layers"] * per_layer + c["d_model"] * c["vocab_size"]
+def active_params(c: Dict) -> float:
+    """Parameters a token multiplies, from the weight tree: every product
+    leaf (kinds ``normal`` and ``expert``), an ``expert`` leaf at
+    ``experts_per_token`` over the experts the router chooses among
+    (``router_experts``, by default ``num_experts``: the file's share of
+    the experts counts at its share); and the LM head, the embedding
+    transposed where it is tied.  The embedding is a lookup and a norm a
+    scale: neither multiplies."""
+    dense = experts = 0
+    for _, (shape, kind) in weights.leaf_paths(weights.shapes(c)):
+        if kind == "normal":
+            dense += math.prod(shape)
+        elif kind == "expert":
+            experts += math.prod(shape)
+    if experts:
+        experts = experts * c["experts_per_token"] \
+            / c.get("router_experts", c["num_experts"])
+    tied = c["d_model"] * c["vocab_size"] if c["tie_embeddings"] else 0
+    return dense + experts + tied
 
 
 def attn_decode_call(c: Dict, batch: int, pos: int) -> Dict[str, float]:
@@ -95,12 +115,15 @@ def serve_token_flops(c: Dict, context: int) -> float:
 def train_step_flops(c: Dict, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 a parameter a token, and causal
     attention's scores and weighted sum forward (a query at position i sees
-    i + 1 keys) and twice that backward; nothing recomputed is counted."""
+    i + 1 keys) and twice that backward; nothing recomputed is counted.
+    The scores are ``qk_head_dim`` wide and the values ``v_head_dim``, each
+    ``head_dim`` by default, in ``attention_layers`` of the layers, by
+    default all."""
     tokens = batch * seq
-    attn_fwd = 2 * 2 * batch * c["num_heads"] * c["head_dim"] \
-        * (seq * (seq + 1) // 2)
+    width = c.get("qk_head_dim", c["head_dim"]) + c.get("v_head_dim", c["head_dim"])
+    attn_fwd = 2 * batch * c["num_heads"] * width * (seq * (seq + 1) // 2)
     return 6.0 * active_params(c) * tokens \
-        + 3.0 * c["num_layers"] * attn_fwd
+        + 3.0 * c.get("attention_layers", c["num_layers"]) * attn_fwd
 
 
 def capacity(c: Dict, tokens: int) -> int:

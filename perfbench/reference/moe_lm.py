@@ -2,9 +2,9 @@
 
 Written from the configuration file alone, in plain PyTorch and float32
 with TF32 off: no kernel, no cache, no batching engine, nothing of the
-program.  It reads the weight tree the harness made (the layout of
+program.  It owns the weight tree the harness makes (``shapes``, drawn by
 ``perfbench/weights.py``) and works out again everything the program
-derives from it.
+derives from it; what no layer of its own decides is in ``common.py``.
 
 The model, as the configuration runs it (its ``departures`` say where that
 differs from the published model):
@@ -20,78 +20,45 @@ differs from the published model):
   ``capacity(n)`` assignments (counts.capacity) in token order, then
   expert-rank order; later ones are dropped and add nothing;
 - final RMSNorm and the LM head (the embedding transposed when tied).
-
-``precision="fp8"`` computes every product on float8 (e4m3) operands, each
-row of an activation and each column of a weight scaled to the format's
-range: the control that the check has to refuse.
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from perfbench import counts
-
-_FP8_MAX = 448.0
-
-
-def no_tf32():
-    """Float32 products in full float32 on the card."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+from perfbench.reference.common import (gqa_attention, head_loss,
+                                        head_weight, layer_weights, mm,
+                                        no_tf32, rms_norm)
 
 
-def _fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3, scaled along ``dim`` to its range; the
-    rounding passes the gradient straight through."""
-    amax = x.detach().abs().amax(dim=dim, keepdim=True).clamp_min(1e-12)
-    scale = amax / _FP8_MAX
-    q = (x.detach() / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
-    return x + (q - x.detach())
-
-
-def mm(a: torch.Tensor, w: torch.Tensor, precision: Optional[str]) -> torch.Tensor:
-    if precision == "fp8":
-        return _fp8(a, -1) @ _fp8(w, -2)
-    return a @ w
-
-
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * w
-
-
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x (..., S, dh) at ``positions`` (S,)."""
-    dh = x.shape[-1]
-    inv = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
-                                        device=x.device) / dh))
-    ang = positions.float()[:, None] * inv[None]
-    cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def causal_attention(q, k, v, precision: Optional[str], q_block: int = 1024):
-    """q (B, H, S, dh), k/v (B, Hkv, S, dh) -> (B, H, S, dh); query head h
-    reads key head h // (H / Hkv)."""
-    b, h, s, dh = q.shape
-    g = h // k.shape[1]
-    k = k.repeat_interleave(g, dim=1)
-    v = v.repeat_interleave(g, dim=1)
-    outs = []
-    for lo in range(0, s, q_block):
-        hi = min(s, lo + q_block)
-        sc = mm(q[:, :, lo:hi], k[:, :, :hi].transpose(-1, -2), precision) \
-            / math.sqrt(dh)
-        qpos = torch.arange(lo, hi, device=q.device)[:, None]
-        kpos = torch.arange(hi, device=q.device)[None, :]
-        sc = sc.masked_fill(kpos > qpos, float("-inf"))
-        outs.append(mm(torch.softmax(sc, dim=-1), v[:, :, :hi], precision))
-    return torch.cat(outs, dim=2)
+def shapes(c: Dict) -> Dict[str, Any]:
+    """{name: (shape, kind)} of the MoE decoder LM, nested as the port nests
+    it: ``blocks/lyr/{attn,ln1,ln2,moe}`` stacked over the layers."""
+    n, d, v = c["num_layers"], c["d_model"], c["vocab_size"]
+    h, hkv, dh = c["num_heads"], c["num_kv_heads"], c["head_dim"]
+    e, f = c["num_experts"], c["d_ff"]
+    lyr = {
+        "attn": {"wq": ((n, d, h * dh), "normal"),
+                 "wk": ((n, d, hkv * dh), "normal"),
+                 "wv": ((n, d, hkv * dh), "normal"),
+                 "wo": ((n, h * dh, d), "normal")},
+        "ln1": {"w": ((n, d), "ones")},
+        "ln2": {"w": ((n, d), "ones")},
+        "moe": {"router": ((n, d, e), "normal"),
+                "w1": ((n, e, d, f), "expert"),
+                "wg": ((n, e, d, f), "expert"),
+                "w2": ((n, e, f, d), "expert")},
+    }
+    tree: Dict[str, Any] = {"embed": ((v, d), "embed"),
+                            "blocks": {"lyr": lyr},
+                            "final_norm": {"w": ((d,), "ones")}}
+    if not c["tie_embeddings"]:
+        tree["lm_head"] = ((d, v), "normal")
+    return tree
 
 
 def moe(c: Dict, p: Dict, x2: torch.Tensor, groups: torch.Tensor,
@@ -145,45 +112,18 @@ def moe(c: Dict, p: Dict, x2: torch.Tensor, groups: torch.Tensor,
     return y, aux, zloss
 
 
-def layer_weights(w: Dict, i: int, dtype=torch.float32) -> Dict:
-    """Layer ``i`` of the stacked block weights, in float32."""
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        return t[i].to(dtype)
-    return walk(w["blocks"]["lyr"])
-
-
 def layer(c: Dict, p: Dict, x: torch.Tensor, positions: torch.Tensor,
           groups: torch.Tensor, group_size: int, precision: Optional[str],
           seq_block: int):
     """One decoder layer on x (B, S, D); attention runs over ``seq_block``
     rows of the batch at a time.  Returns (x, aux, zloss)."""
     b, s, d = x.shape
-    h, hkv, dh = c["num_heads"], c["num_kv_heads"], c["head_dim"]
-    a = p["attn"]
     hn = rms_norm(x, p["ln1"]["w"], c["norm_eps"])
-    outs = []
-    for lo in range(0, b, seq_block):
-        xb = hn[lo:lo + seq_block]
-        nb = xb.shape[0]
-        q = mm(xb, a["wq"], precision).reshape(nb, s, h, dh).transpose(1, 2)
-        kk = mm(xb, a["wk"], precision).reshape(nb, s, hkv, dh).transpose(1, 2)
-        vv = mm(xb, a["wv"], precision).reshape(nb, s, hkv, dh).transpose(1, 2)
-        q = rope(q, positions, c["rope_theta"])
-        kk = rope(kk, positions, c["rope_theta"])
-        o = causal_attention(q, kk, vv, precision)
-        outs.append(mm(o.transpose(1, 2).reshape(nb, s, h * dh), a["wo"],
-                       precision))
-    x = x + torch.cat(outs, dim=0)
+    x = x + gqa_attention(c, p["attn"], hn, positions, precision, seq_block)
     hn = rms_norm(x, p["ln2"]["w"], c["norm_eps"])
     y, aux, z = moe(c, p["moe"], hn.reshape(b * s, d), groups, group_size,
                     precision)
     return x + y.reshape(b, s, d), aux, z
-
-
-def head_weight(c: Dict, w: Dict) -> torch.Tensor:
-    return (w["embed"].T if c["tie_embeddings"] else w["lm_head"]).float()
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +156,7 @@ def stream_logits(c: Dict, w: Dict, streams: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Training: loss, gradients and AdamW
+# Training: the loss (``common.train`` takes its gradients)
 # ---------------------------------------------------------------------------
 
 def loss(c: Dict, w: Dict, tokens: torch.Tensor,
@@ -240,88 +180,6 @@ def loss(c: Dict, w: Dict, tokens: torch.Tensor,
                          precision, 1)
         x, a, zz = checkpoint(body, x, use_reentrant=False)
         aux, z = aux + a, z + zz
-    x = rms_norm(x, w["final_norm"]["w"], c["norm_eps"])
-    head = w["embed"].T if c["tie_embeddings"] else w["lm_head"]
-    xs = x[:, :-1].reshape(-1, c["d_model"])
-    tgt = tokens[:, 1:].reshape(-1)
-
-    def ce(xc, tc):
-        return F.cross_entropy(mm(xc, head, precision), tc, reduction="sum")
-
-    nll = torch.zeros((), device=dev)
-    for lo in range(0, xs.shape[0], ce_rows):
-        nll = nll + checkpoint(ce, xs[lo:lo + ce_rows], tgt[lo:lo + ce_rows],
-                               use_reentrant=False)
     n = c["num_layers"]
-    return nll / xs.shape[0] + 0.01 * aux / n + 1e-3 * z / n
-
-
-def lr_at(o: Dict, step: int) -> float:
-    """Linear warm-up, then cosine decay to ``min_lr_frac`` (step >= 1)."""
-    warm = min(step / max(o["warmup_steps"], 1), 1.0)
-    prog = min(max((step - o["warmup_steps"])
-                   / max(o["total_steps"] - o["warmup_steps"], 1), 0.0), 1.0)
-    frac = o["min_lr_frac"] + (1 - o["min_lr_frac"]) * 0.5 * (1 + math.cos(math.pi * prog))
-    return o["lr"] * warm * frac
-
-
-def leaf_norms(named) -> Dict[str, float]:
-    """The norm of each leaf of (path, tensor) pairs; a leaf stacked over
-    the layers (under ``blocks/``) counts as one leaf a layer, ``path#i``."""
-    out: Dict[str, float] = {}
-    for path, t in named:
-        if path.startswith("blocks/"):
-            for i in range(t.shape[0]):
-                out[f"{path}#{i}"] = float(torch.linalg.vector_norm(t[i].float()))
-        else:
-            out[path] = float(torch.linalg.vector_norm(t.float()))
-    return out
-
-
-def train(c: Dict, w: Dict, batches: Sequence[torch.Tensor], o: Dict,
-          precision: Optional[str] = None, storage: torch.dtype = torch.bfloat16
-          ) -> Dict:
-    """AdamW with global-norm clipping over ``batches``, one step each, from
-    the weights ``w`` (float32 leaves, updated in place).  The parameters
-    are stored in ``storage``: each update is made in float32 and the new
-    value rounded to it.  Returns the losses, the norm of each leaf's
-    clipped gradient of the first step and of each leaf's change over all
-    the steps (``leaf_norms``)."""
-    no_tf32()
-    from perfbench.weights import leaf_paths
-    named = list(leaf_paths(w))
-    params = [t for _, t in named]
-    start = [p.detach().clone() for p in params]
-    m = [torch.zeros_like(p) for p in params]
-    v = [torch.zeros_like(p) for p in params]
-    b1, b2 = o["beta1"], o["beta2"]
-    losses: List[float] = []
-    grad_norms: Dict[str, float] = {}
-    for step, tokens in enumerate(batches, start=1):
-        for p in params:
-            p.requires_grad_(True)
-        lv = loss(c, w, tokens, precision)
-        grads = torch.autograd.grad(lv, params)
-        for p in params:
-            p.requires_grad_(False)
-        losses.append(float(lv.detach()))
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        scale = torch.clamp(o["clip_norm"] / gnorm.clamp_min(1e-9), max=1.0)
-        lr = lr_at(o, step)
-        bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
-        with torch.no_grad():
-            if step == 1:
-                grad_norms = leaf_norms((path, g * scale) for (path, _), g
-                                        in zip(named, grads))
-            for j, (p, g) in enumerate(zip(params, grads)):
-                g = g * scale
-                m[j].mul_(b1).add_((1 - b1) * g)
-                v[j].mul_(b2).add_((1 - b2) * g * g)
-                delta = (m[j] / bc1) / (torch.sqrt(v[j] / bc2) + o["eps"]) \
-                    + o["weight_decay"] * p
-                p.copy_((p - lr * delta).to(storage).float())
-        del grads
-    with torch.no_grad():
-        change = leaf_norms((path, params[j] - start[j])
-                            for j, (path, _) in enumerate(named))
-    return {"losses": losses, "grad_norms": grad_norms, "change_norms": change}
+    return head_loss(c, w, x, tokens, precision, ce_rows) \
+        + 0.01 * aux / n + 1e-3 * z / n

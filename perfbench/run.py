@@ -96,8 +96,8 @@ def read_per_layer(cell, run):
 def main(argv=None, *, device=None, overrides=None) -> int:
     """Run one cell; returns the exit code.  ``device`` and ``overrides``
     (``config``, ``traffic`` and ``limits`` entries merged over the cell's
-    files) are for the tests, which run the harness on the CPU at a small
-    size."""
+    files once the file has been checked against the port) are for the
+    tests, which run the harness on the CPU at a small size."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -112,10 +112,6 @@ def main(argv=None, *, device=None, overrides=None) -> int:
     cfg_file = cells.config(cell["config"])
     spec = cells.traffic(cell["traffic"])
     limits = cells.run_limits(args.workload)
-    if overrides:
-        cfg_file.update(overrides.get("config", {}))
-        spec.update(overrides.get("traffic", {}))
-        limits = overrides.get("limits", limits)
 
     import torch
     if device is None:
@@ -132,16 +128,25 @@ def main(argv=None, *, device=None, overrides=None) -> int:
     from repro_torch.models import get_config
     from repro_torch.models.params import param_shapes
     port_cfg = get_config(cfg_file["port_config"])
+    # the file as it is committed against the port's registered config,
+    # over every key of the file that is a field of the port's config
+    bad = cells.check_port_config(cfg_file, port_cfg)
+    if bad:
+        log("the configuration file and the port's registered config "
+            "differ: " + "; ".join(bad))
+        return 3
     if overrides:
+        cfg_file.update(overrides.get("config", {}))
+        spec.update(overrides.get("traffic", {}))
+        limits = overrides.get("limits", limits)
         port_cfg = dataclasses.replace(port_cfg, **{
-            k: cfg_file[k] for k in cells.PORT_KEYS if k in cfg_file})
-    else:
-        bad = cells.check_port_config(cfg_file, port_cfg)
-        if bad:
-            log("the configuration file and the port's registered config "
-                "differ: " + "; ".join(bad))
-            return 3
-    if _shape_tree(W.shapes(cfg_file)) != _shape_tree(param_shapes(port_cfg)):
+            k: cfg_file[k] for k in cells.port_keys(cfg_file, port_cfg)})
+    try:
+        tree = W.shapes(cfg_file)
+    except KeyError as e:
+        log(str(e))
+        return 3
+    if _shape_tree(tree) != _shape_tree(param_shapes(port_cfg)):
         log("the harness's weight tree differs from the port's param_shapes")
         return 3
 

@@ -342,8 +342,10 @@ def reference_errors(cfg_file: Dict, weights, rec: Dict, rids: List[int],
     it is produced).  With a control ``precision``, ``control``: the same
     error of the reference computed in that precision, with the token it
     puts first as the served one.  Per session the reference replays every
-    slot's stream up to the last position a sampled request needs."""
-    from perfbench.reference import moe_lm as REF
+    slot's stream up to the last position a sampled request needs, in the
+    configuration's reference module."""
+    from perfbench import cells
+    REF = cells.reference(cfg_file)
     out: Dict[str, List[torch.Tensor]] = {"errors": [], "gaps": [],
                                           "altered": [], "control": []}
     by_session: Dict[int, List[int]] = {}

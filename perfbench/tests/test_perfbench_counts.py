@@ -9,13 +9,46 @@ from perfbench import counts
 C = {"num_layers": 2, "d_model": 8, "num_heads": 2, "num_kv_heads": 1,
      "head_dim": 4, "d_ff": 6, "vocab_size": 10, "num_experts": 4,
      "experts_per_token": 2, "moe_capacity_factor": 1.25,
-     "capacity_multiple": 8, "dtype": "bfloat16"}
+     "capacity_multiple": 8, "dtype": "bfloat16", "tie_embeddings": False,
+     "reference": "perfbench/reference/moe_lm.py"}
 
 
 def test_active_params_by_hand():
     attn = 8 * 8 + 8 * 4 + 8 * 4 + 8 * 8          # wq, wk, wv, wo
     per_layer = attn + 8 * 4 + 2 * 3 * 8 * 6       # router, 2 experts
     assert counts.active_params(C) == 2 * per_layer + 8 * 10
+
+
+def test_active_params_of_a_share_of_the_experts():
+    """A file that holds 2 of the 4 experts the router chooses among: a
+    token multiplies 2 x 2 / 4 of the experts held; a tied head counts
+    once, as the embedding transposed."""
+    c = dict(C, num_experts=2, router_experts=4, tie_embeddings=True)
+    attn = 8 * 8 + 8 * 4 + 8 * 4 + 8 * 8
+    per_layer = attn + 8 * 2 + 3 * 8 * 6 * 2 * 2 / 4
+    assert counts.active_params(c) == 2 * per_layer + 8 * 10
+
+
+def test_train_step_flops_of_other_widths():
+    """Scores ``qk_head_dim`` wide, values ``v_head_dim``, attention in
+    ``attention_layers`` of the layers."""
+    b, s = 2, 3
+    c = dict(C, qk_head_dim=6, v_head_dim=5, attention_layers=1)
+    attn_fwd = 2 * b * 2 * (6 + 5) * (1 + 2 + 3)
+    assert counts.train_step_flops(c, b, s) == \
+        6 * counts.active_params(c) * b * s + 3 * 1 * attn_fwd
+
+
+@pytest.mark.parametrize("name,active,flops", [
+    ("granite-moe-1b-a400m", 428_608_512, 52_031_951_732_736),
+    ("olmoe-1b-7b", 1_178_861_568, 129_084_168_339_456)])
+def test_counts_of_the_configuration_files(name, active, flops):
+    """What ``mfu.train`` divides by, as the hand-written MoE formula gave
+    it: 4 x 4,096 tokens a step."""
+    from perfbench import cells
+    c = cells.config(name)
+    assert counts.active_params(c) == active
+    assert counts.train_step_flops(c, 4, 4096) == flops
 
 
 def test_attn_decode_call_by_hand():

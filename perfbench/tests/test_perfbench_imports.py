@@ -1,6 +1,8 @@
 """Nothing the benchmark runs imports JAX or the JAX package, comparing the
 top-level name whole (``repro_torch`` is not ``repro``); the reference
-imports nothing of the program."""
+modules, the shared one among them, import nothing of the program; no
+driver names a reference module: the configuration's ``reference`` key
+does."""
 import ast
 import os
 import subprocess
@@ -30,10 +32,36 @@ def test_no_jax_nor_jax_package(path):
     assert not set(_tops(path)) & {"jax", "jaxlib", "flax", "repro"}
 
 
-@pytest.mark.parametrize("path", [f for f in FILES if "/reference/" in f],
-                         ids=os.path.basename)
+REFERENCE = [f for f in FILES if "/reference/" in f]
+
+
+@pytest.mark.parametrize("path", REFERENCE, ids=os.path.basename)
 def test_reference_imports_nothing_of_the_program(path):
     assert "repro_torch" not in set(_tops(path))
+
+
+def test_every_reference_module_is_checked():
+    """The shared module, the MoE decoder's and the dense fixture's."""
+    assert {"common.py", "moe_lm.py", "dense_lm.py"} <= \
+        {os.path.basename(f) for f in REFERENCE}
+
+
+def _imported(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("name", ["run.py", "train_driver.py", "serve_driver.py",
+                                  "calibrate.py", "weights.py", "counts.py"])
+def test_no_driver_names_a_reference_module(name):
+    mods = set(_imported(os.path.join(HERE, name)))
+    assert not {m for m in mods if m.startswith("perfbench.reference.")
+                and m.split(".")[2] != "common"}, mods
 
 
 def test_a_run_loads_no_jax():

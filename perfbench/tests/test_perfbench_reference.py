@@ -23,8 +23,8 @@ def _cfg(**kw):
 def _port(c):
     import dataclasses
     from repro_torch.models import get_config
-    return dataclasses.replace(get_config(c["port_config"]), **{
-        k: c[k] for k in cells.PORT_KEYS if k in c})
+    port = get_config(c["port_config"])
+    return dataclasses.replace(port, **{k: c[k] for k in cells.port_keys(c, port)})
 
 
 def _skewed(c, seed):

@@ -16,8 +16,8 @@ from typing import Dict, List
 
 import torch
 
-from perfbench import traffic as TR
-from perfbench.reference.moe_lm import leaf_norms
+from perfbench import cells, traffic as TR
+from perfbench.reference.common import leaf_norms, train
 
 
 def _named(tree, prefix=""):
@@ -142,12 +142,13 @@ def reference(cfg_file: Dict, spec: Dict, rec: Dict, weights, device,
               precision=None, rows=None) -> Dict:
     """The reference's training over the checked steps' batches (the first
     ``rows`` rows of each, all by default), from ``weights``, its
-    parameters stored in the configuration's dtype."""
-    from perfbench.reference import moe_lm as REF
+    parameters stored in the configuration's dtype, on the loss of the
+    configuration's reference module."""
     batches = [torch.from_numpy(rec["pool"][i][:rows]).to(device)
                for i in range(spec["checked_steps"])]
-    return REF.train(cfg_file, to_f32(weights), batches, spec["optimizer"],
-                     precision, getattr(torch, cfg_file["dtype"]))
+    return train(cells.reference(cfg_file).loss, cfg_file, to_f32(weights),
+                 batches, spec["optimizer"], precision,
+                 getattr(torch, cfg_file["dtype"]))
 
 
 def check(cfg_file: Dict, spec: Dict, rec: Dict, seed: int, weights, device,
