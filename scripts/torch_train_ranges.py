@@ -20,9 +20,10 @@ traffic's batches, AdamW), with a ``MetricsRegistry`` on the train step
    every operator recorded): the four accepted per-layer readings and the
    steps' walls;
 5. two steps in ``perfbench.attribution.RangesWindow``: the table of
-   range, device ms and idle ms a step, the five readers of the
-   ranges-only window, its steps' walls against the untraced median, and
-   whether the charges add up to the busy time.
+   range, device ms and idle ms a step, the readers of the ranges-only
+   window (each None where the cell's model has no such range), its
+   steps' walls against the untraced median, and whether the charges add
+   up to the busy time.
 
 Each window is refused and traced again (up to 4 times) unless its device
 work spans 0.97-1.01 of the CUDA events around it.  Prints one JSON line
@@ -45,7 +46,8 @@ for _p in (ROOT, os.path.join(ROOT, "src")):
 
 NEW = ["attn_device_ms.train", "moe_device_ms.train",
        "moe_assign_device_ms.train", "loss_device_ms.train",
-       "step_idle_ms.train"]
+       "step_idle_ms.train", "attn_latent_device_ms.train",
+       "moe_shared_device_ms.train", "attn_roofline.train"]
 OLD = ["grads_device_ms.train", "optimizer_device_ms.train",
        "device_idle_share.train"]
 RUNTIME = ("cuda_runtime", "cuda_driver")
@@ -152,7 +154,7 @@ def main(argv=None, *, device=None, overrides=None) -> int:
         cfg_file.update(overrides.get("config", {}))
         spec.update(overrides.get("traffic", {}))
         port_cfg = dataclasses.replace(port_cfg, **{
-            k: cfg_file[k] for k in cells.PORT_KEYS if k in cfg_file})
+            k: cfg_file[k] for k in cells.port_keys(cfg_file, port_cfg)})
     out = []
 
     def emit(phase, **rec):
@@ -235,7 +237,7 @@ def main(argv=None, *, device=None, overrides=None) -> int:
     # 5. the ranges-only window
     s, walls, attempt = traced(attribution.RangesWindow, lambda w: w.read())
     s["steps"] = 2
-    run = SimpleNamespace(rec={"ranges": s})
+    run = SimpleNamespace(rec={"ranges": s}, cfg=cfg_file, spec=spec)
     charged = sum(r["device_s"] for r in s.get("ranges", {}).values())
     emit("ranges_window", attempt=attempt, span_ratio=s.get("span_ratio"),
          walls_s=walls, ratio_to_untraced=statistics.median(walls) / median,

@@ -95,9 +95,10 @@ class _TallyCounter(Counter):
 class TrainCounters:
     """The train step's counters in a :class:`MetricsRegistry`: steps and
     tokens; on a CUDA device the allocator's counts and reserved bytes,
-    read once a step from its host-side statistics; the MoE assignments and
-    drops, tallied on the device (``moe.DropTally``) and read back only when
-    the registry reads them, so the step waits for nothing."""
+    read once a step from its host-side statistics; the MoE assignments,
+    drops and assignments to experts held elsewhere, tallied on the device
+    (``moe.DropTally``) and read back only when the registry reads them, so
+    the step waits for nothing."""
 
     def __init__(self, reg: MetricsRegistry) -> None:
         self.reg = reg
@@ -111,6 +112,9 @@ class TrainCounters:
         reg._get(_TallyCounter, "moe_dropped_assignments_total",
                  "assignments past an expert's capacity").source = \
             lambda: self.drops.dropped()
+        reg._get(_TallyCounter, "moe_remote_assignments_total",
+                 "assignments to experts held on other devices").source = \
+            lambda: self.drops.remote()
         self.alloc: Optional[Dict[str, int]] = None   # last statistics read
 
     def _alloc_stats(self, device: torch.device) -> Optional[Dict[str, int]]:

@@ -8,6 +8,11 @@ Scores and the probability-value product accumulate in float32: bf16
 operands are upcast before the product, as ``preferred_element_type``
 asks in the reference.
 
+``mla_block`` is DeepSeek-V2's multi-head latent attention for training
+and prefill (the port's alone): every head's keys and values from one
+normed latent, one rotary key shared by the heads, values narrower than
+the keys.  It has no decode path yet (``decode.LatentCacheMissing``).
+
 The decode path writes the cache in place and returns it.  It keeps the
 reference's traps (``ROADMAP.md`` C): ring slots by floor-mod (C.4), a
 write position past the cache end clamped to the last slot as
@@ -23,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..obs.ranges import bwd_span, span
-from .common import (apply_rope, constrain, on_mesh, per_device, rope_freqs,
-                     softcap, unshard)
+from .common import (apply_rope, constrain, on_mesh, per_device, rms_norm,
+                     rope_freqs, softcap, unshard, yarn_scale)
 from .config import ModelConfig
 
 _NEG = -1e30
@@ -68,7 +73,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask-free and dead chunks are never visited.
 
     ``q_offset``: absolute position of q[0] (decode/prefill continuation).
-    q: (B,H,Sq,dh), k/v: (B,Hkv,Sk,dh).
+    q: (B,H,Sq,dh), k: (B,Hkv,Sk,dh), v: (B,Hkv,Sk,dv) -> (B,H,Sq,dv); the
+    values may be narrower than the keys (latent attention's).
     """
     if on_mesh(q):
         def attend(q, k, v):
@@ -78,7 +84,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 kv_chunk=kv_chunk, q_offset=q_offset)
         return per_device(attend, q, k, v, like=q)
     b, h, sq, dh = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // hkv
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, sk)
@@ -93,7 +99,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     qg = q.reshape(b, hkv, g, sq_p, dh)
     k_blocks = k.reshape(b, hkv, nk, kv_chunk, dh)
-    v_blocks = v.reshape(b, hkv, nk, kv_chunk, dh)
+    v_blocks = v.reshape(b, hkv, nk, kv_chunk, dv)
     full_chunks = sk // kv_chunk       # chunks with no padding
     dev = q.device
 
@@ -147,7 +153,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
         carry = (torch.full((b, hkv, g, q_chunk, 1), _NEG, device=dev),
                  torch.zeros((b, hkv, g, q_chunk, 1), device=dev),
-                 torch.zeros((b, hkv, g, q_chunk, dh), device=dev))
+                 torch.zeros((b, hkv, g, q_chunk, dv), device=dev))
         for lo_i, hi_i, masked in ((lo, lo_full, True),       # window boundary
                                    (lo_full, hi_full, False),  # interior
                                    (hi_full, hi, True)):       # causal/pad
@@ -159,7 +165,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = [q_chunk_attend(qg[:, :, :, qi * q_chunk:(qi + 1) * q_chunk], qi)
             for qi in range(nq)]
     out = torch.cat(outs, dim=3) if len(outs) > 1 else outs[0]
-    out = out.reshape(b, h, sq_p, dh)
+    out = out.reshape(b, h, sq_p, dv)
     return out[:, :, :sq]
 
 
@@ -185,6 +191,39 @@ def attn_block(cfg: ModelConfig, p, x: torch.Tensor, *,
         out = out.transpose(1, 2).reshape(b, s, -1)
         out = out @ p["wo"]
         return mark(constrain(out, "batch", "seq", "embed"))
+
+
+def mla_block(cfg: ModelConfig, p, x: torch.Tensor,
+              rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Multi-head latent attention for training and prefill (an
+    ``MLAConfig``), in the ranges ``attn`` and ``attn.bwd``.
+
+    x: (B,S,D).  q = x Wq, per head ``qk_nope_head_dim`` then
+    ``qk_rope_head_dim`` wide.  In the range ``attn.latent``: the latent
+    [c_kv, k_pe] = x Wkv_a, c_kv's RMSNorm, c_kv Wkv_b (each head's k_nope
+    and v) and the one rotary key k_pe that every head shares.  Causal
+    attention over q = [q_nope, rope(q_pe)] and k = [k_nope, rope(k_pe)] at
+    YaRN's scale (``yarn_scale``), values ``v_head_dim`` wide, then
+    (H * v_head_dim) Wo.  ``rope``: ``yarn_freqs`` at the positions."""
+    with span("attn"):
+        x, mark = bwd_span("attn", x)
+        b, s, _ = x.shape
+        h, r = cfg.num_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        cos, sin = rope[0][:s], rope[1][:s]
+        q = (x @ p["wq"]).reshape(b, s, h, dn + dr).transpose(1, 2)
+        with span("attn.latent"):
+            c_kv, k_pe = (x @ p["wkv_a"]).split([r, dr], dim=-1)
+            c_kv = rms_norm(c_kv, p["kv_norm"]["w"], eps=cfg.norm_eps)
+            kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, dn + dv).transpose(1, 2)
+            k_nope, v = kv.split([dn, dv], dim=-1)
+            k_pe = apply_rope(k_pe[:, None], cos, sin)     # (B,1,S,dr)
+        q_nope, q_pe = q.split([dn, dr], dim=-1)
+        q = torch.cat([q_nope, apply_rope(q_pe, cos, sin)], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(b, h, s, dr)], dim=-1)
+        out = chunked_attention(q, k, v, causal=True, scale=yarn_scale(cfg))
+        out = out.transpose(1, 2).reshape(b, s, h * dv) @ p["wo"]
+        return mark(out)
 
 
 # ---------------------------------------------------------------------------

@@ -129,6 +129,53 @@ def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor) -> Tuple:
     return torch.cos(ang), torch.sin(ang)
 
 
+def _yarn_mscale(factor: float, mscale: float) -> float:
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_freqs(cfg: ModelConfig, positions: torch.Tensor) -> Tuple:
+    """YaRN's rotary tables for the ``qk_rope_head_dim`` rotated dimensions
+    of a latent-attention config: positions (..., S) -> (cos, sin) of shape
+    (..., S, qk_rope_head_dim // 2), in float32.
+
+    The frequencies of the published YaRN (DeepSeek-V2's
+    ``rope_scaling``): each is the base one where it turns more than
+    ``yarn_beta_fast`` times over ``yarn_original_max_position`` positions,
+    the base one over ``yarn_factor`` where it turns fewer than
+    ``yarn_beta_slow`` times, and a linear ramp between, over the
+    dimensions; the tables are scaled by the ratio of the two mscales
+    (1 where they are equal, as published)."""
+    dim, base = cfg.qk_rope_head_dim, cfg.rope_theta
+    orig, factor = cfg.yarn_original_max_position, cfg.yarn_factor
+
+    def at(turns: float) -> float:         # the dimension of ``turns`` turns
+        return dim * math.log(orig / (turns * 2 * math.pi)) \
+            / (2 * math.log(base))
+
+    low = max(math.floor(at(cfg.yarn_beta_fast)), 0)
+    high = min(math.ceil(at(cfg.yarn_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    dev = positions.device
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=dev) / dim
+    extra = 1.0 / (base ** exps)
+    inter = 1.0 / (factor * base ** exps)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=dev) - low) / (high - low), 0, 1)
+    inv = inter * ramp + extra * (1.0 - ramp)
+    ang = positions.float()[..., None] * inv
+    m = _yarn_mscale(factor, cfg.yarn_mscale) \
+        / _yarn_mscale(factor, cfg.yarn_mscale_all_dim)
+    return torch.cos(ang) * m, torch.sin(ang) * m
+
+
+def yarn_scale(cfg: ModelConfig) -> float:
+    """Latent attention's score scale: 1/sqrt(q's width) times YaRN's
+    ``mscale_all_dim`` factor squared."""
+    m = _yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    return cfg.qk_head_dim ** -0.5 * m * m
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
     """x: (B, H, S, D); cos/sin: (B, S, D/2) or (S, D/2).  Rotations in the

@@ -79,7 +79,20 @@ def _stack_shapes(n: int, tree):
 # ---------------------------------------------------------------------------
 
 
+class LatentCacheMissing(NotImplementedError):
+    """Decoding a latent-attention config (``MLAConfig``): the port has no
+    latent cache yet, only the training and prefill path."""
+
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__(
+            f"{cfg.name}: latent attention decodes through a latent cache "
+            "(c_kv and the shared rotary key), which the port does not "
+            "have yet; train or prefill it instead")
+
+
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Any:
+    if cfg.kv_lora_rank:
+        raise LatentCacheMissing(cfg)
     if cfg.family == "vlm":
         n_self = cfg.cross_attn_every - 1
         cross_kv = (batch, cfg.num_kv_heads, cfg.num_patches, cfg.head_dim)
@@ -339,6 +352,8 @@ def serve_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, pos
 
     Returns (logits (B, 1, V) float32, the cache, updated in place).
     """
+    if cfg.kv_lora_rank:
+        raise LatentCacheMissing(cfg)
     pos = int(pos)
     _states_to_f32(cfg, cache)
     with full_f32():

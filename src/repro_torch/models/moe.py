@@ -26,12 +26,21 @@ assignments, as the reference's exclusive cumulative sum does.  The router
 runs in float32 whatever the model dtype, in full float32
 (``device.full_f32``).
 
+A held share (an ``MLAConfig`` whose ``num_experts`` is less than its
+``routed_experts``): the router chooses among all of the experts, the
+capacity is sized over all of them, and the banked dispatch computes the
+held experts' part of the result for the tokens routed to them; an
+assignment to an expert held elsewhere is left out, neither computed nor
+counted as a drop.  Shared experts (``n_shared_experts``) are one gated MLP
+on every token, added unweighted.  The router renormalises its top-k
+probabilities unless the config's ``norm_topk_prob`` is false.
+
 The block runs in the profiler ranges ``moe`` and ``moe.bwd``, and its
-steps in ``moe.router``, ``moe.assign``, ``moe.dispatch``, ``moe.experts``
-and ``moe.combine`` (``obs.ranges``).  While a :class:`DropTally` is
-installed (:func:`counting`), each forward of ``_assign`` adds its
-assignments and those kept to it; a recomputation under remat adds
-nothing.
+steps in ``moe.router``, ``moe.assign``, ``moe.dispatch``, ``moe.experts``,
+``moe.combine`` and ``moe.shared`` (``obs.ranges``).  While a
+:class:`DropTally` is installed (:func:`counting`), each forward of
+``_assign`` adds its assignments, those kept and those to experts held
+elsewhere to it; a recomputation under remat adds nothing.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from ..obs.ranges import bwd_span, span
 from . import common as _common
 from .common import activation, constrain
 from .config import ModelConfig
+from .mlp import mlp_block
 from .params import gated_mlp
 
 
@@ -62,10 +72,12 @@ def _router(cfg: ModelConfig, p, x2: torch.Tensor, aux: bool = True):
         k = cfg.experts_per_token
         srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
         top_p, top_i = srt[:, :k], order[:, :k]
-        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+        if cfg.norm_topk_prob:
+            top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True),
+                                            1e-9)
         if not aux:
             return top_p, top_i, {}
-        e = cfg.num_experts
+        e = cfg.routed_experts
         me = F.one_hot(top_i, e).sum(1).float().mean(dim=0)   # load/expert
         pe = probs.mean(dim=0)
         moe_aux = e * torch.sum(me / k * pe)
@@ -74,29 +86,44 @@ def _router(cfg: ModelConfig, p, x2: torch.Tensor, aux: bool = True):
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots of each expert: the capacity factor over an even share of the
+    assignments among the experts the router chooses among."""
     c = int(math.ceil(tokens * cfg.experts_per_token
-                      * cfg.moe_capacity_factor / cfg.num_experts))
+                      * cfg.moe_capacity_factor / cfg.routed_experts))
     return max(8, -(-c // 8) * 8)   # pad to lane multiple
 
 
 class DropTally:
-    """Assignments and kept assignments of the MoE forwards while installed
-    (:func:`counting`), running totals.  The kept ones are summed on the
-    device, so adding waits for nothing; :meth:`dropped` reads them back."""
+    """Assignments, kept assignments and assignments to experts held
+    elsewhere of the MoE forwards while installed (:func:`counting`),
+    running totals.  The kept and remote ones are summed on the device, so
+    adding waits for nothing; :meth:`dropped` and :meth:`remote` read them
+    back."""
 
     def __init__(self) -> None:
         self.assigned = 0
         self.kept: Optional[torch.Tensor] = None
+        self.away: Optional[torch.Tensor] = None
 
-    def add(self, keep: torch.Tensor) -> None:
+    def add(self, keep: torch.Tensor,
+            mine: Optional[torch.Tensor] = None) -> None:
         self.assigned += keep.numel()
         n = keep.sum()
         self.kept = n if self.kept is None else self.kept.add_(n)
+        if mine is not None:
+            r = (~mine).sum()
+            self.away = r if self.away is None else self.away.add_(r)
+
+    def remote(self) -> int:
+        """Assignments to experts not held here; waits for the forwards it
+        counts."""
+        return 0 if self.away is None else int(self.away)
 
     def dropped(self) -> int:
-        """Assignments past an expert's capacity; waits for the forwards it
-        counts."""
-        return self.assigned - (0 if self.kept is None else int(self.kept))
+        """Assignments past the capacity of an expert held here; waits for
+        the forwards it counts."""
+        return self.assigned - self.remote() \
+            - (0 if self.kept is None else int(self.kept))
 
 
 _TALLY: contextvars.ContextVar = contextvars.ContextVar("moe_tally",
@@ -113,10 +140,16 @@ def counting(tally: DropTally) -> Iterator[DropTally]:
         _TALLY.reset(token)
 
 
-def _assign(top_p, top_i, cap: int):
+def _assign(top_p, top_i, cap: int,
+            held: Optional[Tuple[int, int]] = None):
     """The flat (T*k,) assignment stream, token-major: (expert, gate, kept,
     slot), the slot inside each expert's capacity buffer being the number of
-    earlier assignments to it, clamped to the last.
+    earlier assignments to it, clamped to the last.  With ``held`` = (first
+    id, count), only those experts are here: the expert is the index among
+    them, and an assignment to any other is not kept (nor counted as a
+    drop); such assignments, most of the stream, add their zero rows to
+    slots spread over the whole buffer, not piled on one, whose additions
+    the sorting scatter would make one after another.
 
     The slot is an assignment's rank in its expert's run of the stably
     sorted expert ids: the sort keeps token-major order inside each run, and
@@ -130,10 +163,18 @@ def _assign(top_p, top_i, cap: int):
                 - torch.searchsorted(srt, srt))
         pos = torch.empty_like(eid).scatter_(0, order, rank)
         keep = pos < cap
+        mine = None
+        if held is not None:
+            lo, n = held
+            mine = (eid >= lo) & (eid < lo + n)
+            keep &= mine
+            spread = torch.arange(eid.numel(), device=eid.device) % (n * cap)
+            eid = torch.where(mine, eid - lo, spread // cap)
+            pos = torch.where(mine, pos, spread % cap)
         tally = _TALLY.get()
         # a forward, not remat's recomputation inside a backward
         if tally is not None and torch._C._current_graph_task_id() == -1:
-            tally.add(keep)
+            tally.add(keep, mine)
         return eid, gate, keep, torch.clamp_max(pos, cap - 1)
 
 
@@ -152,14 +193,18 @@ def _expert_ffn(cfg: ModelConfig, p, xe: torch.Tensor) -> torch.Tensor:
 def moe_block_banked(cfg: ModelConfig, p, x: torch.Tensor, aux: bool = True
                      ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, D).  Static-capacity dispatch: scatter rows into the
-    expert-leading buffer, dense expert FFN, gather back."""
+    expert-leading buffer, dense expert FFN, gather back.  Where the router
+    chooses among more experts than are held here (``routed_experts``),
+    only the assignments to the held ones are computed: their part of the
+    result."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.experts_per_token
     cap = capacity(cfg, t)
     x2 = x.reshape(t, d)
     top_p, top_i, aux_m = _router(cfg, p, x2, aux)
-    eid, gate, keep, pos_c = _assign(top_p, top_i, cap)
+    held = (cfg.expert_offset, e) if cfg.routed_experts != e else None
+    eid, gate, keep, pos_c = _assign(top_p, top_i, cap, held)
 
     # dropped assignments add zero rows onto the last slot (C.12)
     with span("moe.dispatch"):
@@ -300,17 +345,22 @@ def moe_block_banked_ep(cfg: ModelConfig, p, x: torch.Tensor, mesh,
 
 def moe_block(cfg: ModelConfig, p, x: torch.Tensor, aux: bool = True
               ) -> Tuple[torch.Tensor, Dict]:
-    """The block in the ranges ``moe`` and ``moe.bwd``."""
+    """The block in the ranges ``moe`` and ``moe.bwd``; the shared experts,
+    where the config has them, added unweighted in ``moe.shared``."""
     with span("moe"):
         x, mark = bwd_span("moe", x)
         if cfg.moe_dispatch != "banked":
             y, aux_m = moe_block_gather(cfg, p, x, aux)
         else:
             ep = _ep_context()
-            if ep is not None and cfg.num_experts % ep[3] == 0:
+            if ep is not None and cfg.num_experts % ep[3] == 0 \
+                    and cfg.routed_experts == cfg.num_experts:
                 mesh, model_axis, batch_axes, tp = ep
                 y, aux_m = moe_block_banked_ep(cfg, p, x, mesh, model_axis,
                                                batch_axes, tp, aux)
             else:
                 y, aux_m = moe_block_banked(cfg, p, x, aux)
+        if cfg.n_shared_experts:
+            with span("moe.shared"):
+                y = y + mlp_block(cfg, p["shared"], x)
         return mark(y), aux_m

@@ -47,7 +47,19 @@ def norm_shapes(cfg: ModelConfig) -> Dict[str, Leaf]:
                        else "ones")}
 
 
+def mla_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Latent attention's products (``attention.mla_block``) and the latent's
+    norm."""
+    d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wq": _leaf((d, h * (dn + dr))), "wkv_a": _leaf((d, r + dr)),
+            "kv_norm": {"w": _leaf((r,), "ones")},
+            "wkv_b": _leaf((r, h * (dn + dv))), "wo": _leaf((h * dv, d))}
+
+
 def attn_shapes(cfg: ModelConfig, cross: bool = False) -> Dict[str, Any]:
+    if cfg.kv_lora_rank:
+        return mla_shapes(cfg)
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s: Dict[str, Any] = {
         "wq": _leaf((d, h * dh)),
@@ -74,12 +86,16 @@ def mlp_shapes(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, Leaf]:
     return s
 
 
-def moe_shapes(cfg: ModelConfig) -> Dict[str, Leaf]:
+def moe_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The router over ``routed_experts``, the ``num_experts`` held here and
+    the shared experts, one MLP ``n_shared_experts * d_ff`` wide."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
-    s = {"router": _leaf((d, e)),
+    s = {"router": _leaf((d, cfg.routed_experts)),
          "w1": _leaf((e, d, f)), "w2": _leaf((e, f, d))}
     if gated_mlp(cfg):
         s["wg"] = _leaf((e, d, f))
+    if cfg.n_shared_experts:
+        s["shared"] = mlp_shapes(cfg, cfg.n_shared_experts * f)
     return s
 
 
@@ -95,6 +111,12 @@ def dense_layer_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 def moe_layer_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return {"ln1": norm_shapes(cfg), "attn": attn_shapes(cfg),
             "ln2": norm_shapes(cfg), "moe": moe_shapes(cfg)}
+
+
+def lead_layer_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """A dense lead layer of an MoE stack: its MLP ``dense_d_ff`` wide."""
+    return {"ln1": norm_shapes(cfg), "attn": attn_shapes(cfg),
+            "ln2": norm_shapes(cfg), "mlp": mlp_shapes(cfg, cfg.dense_d_ff)}
 
 
 def cross_layer_shapes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -214,6 +236,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = _leaf((d, v))
+    if cfg.first_k_dense:
+        tree["lead"] = _stack(cfg.first_k_dense, lead_layer_shapes(cfg))
     if cfg.family == "hybrid":
         tree["shared_block"] = dense_layer_shapes(cfg)
     if cfg.family == "audio":
@@ -331,7 +355,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     total = 0
-    expert_frac = (cfg.experts_per_token / cfg.num_experts
+    expert_frac = (cfg.experts_per_token / cfg.routed_experts
                    if cfg.num_experts else 1.0)
 
     def visit(tree, path=""):

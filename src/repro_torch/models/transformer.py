@@ -10,7 +10,11 @@ layers a group, then a cross layer over the patch embeddings whose
 attention and MLP are gated by ``tanh`` of their gates, which the draw
 makes zero) and audio (whisper: the encoder over the frame embeddings,
 then decoder layers of self attention, cross attention over the encoder's
-output and an MLP).  Both modality families need their ``modality``.
+output and an MLP).  Both modality families need their ``modality``.  A
+latent-attention config (``MLAConfig``, DeepSeek-V2; the port's alone)
+runs its ``first_k_dense`` dense lead layers (``params["lead"]``) before
+the stacked MoE groups, every layer's attention ``attention.mla_block``
+on YaRN's rotary tables.
 
 When gradients are being taken (grad mode on and a tensor that requires
 one) the reference's rematerialization is honoured: with ``cfg.remat``
@@ -32,7 +36,8 @@ from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
 from ..obs.ranges import bwd_span, span
-from .common import embed, lm_logits, norm, rope_freqs, sinusoid_pos
+from .common import (embed, lm_logits, norm, rope_freqs, sinusoid_pos,
+                     yarn_freqs)
 from .config import ModelConfig
 from .mlp import mlp_block
 
@@ -103,10 +108,29 @@ def dense_layer(cfg: ModelConfig, p, x, rope, *, window: int = 0,
     return x + m
 
 
+def _self_attn(cfg: ModelConfig, p, h, rope):
+    """Causal self attention: latent (``attention.mla_block``) for an
+    ``MLAConfig``, else grouped-query."""
+    if cfg.kv_lora_rank:
+        return A.mla_block(cfg, p, h, rope)
+    return A.attn_block(cfg, p, h, rope=rope, causal=True)
+
+
+def lead_layer(cfg: ModelConfig, p, x, rope):
+    """A dense lead layer of an MoE stack, its MLP in the ranges ``mlp`` and
+    ``mlp.bwd``."""
+    h = norm(cfg, p["ln1"], x)
+    x = x + _self_attn(cfg, p["attn"], h, rope)
+    h = norm(cfg, p["ln2"], x)
+    with span("mlp"):
+        h, mark = bwd_span("mlp", h)
+        return x + mark(mlp_block(cfg, p["mlp"], h))
+
+
 def moe_layer(cfg: ModelConfig, p, x, rope) -> Tuple[torch.Tensor, Dict]:
     """(output, the layer's auxiliary losses)."""
     h = norm(cfg, p["ln1"], x)
-    x = x + A.attn_block(cfg, p["attn"], h, rope=rope, causal=True)
+    x = x + _self_attn(cfg, p["attn"], h, rope)
     h = norm(cfg, p["ln2"], x)
     y, aux = MOE.moe_block(cfg, p["moe"], h)
     return x + y, aux
@@ -178,7 +202,9 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
     b, s = tokens.shape
     x = embed(cfg, params, tokens)
     rope = None
-    if cfg.rope_theta:
+    if cfg.kv_lora_rank:
+        rope = yarn_freqs(cfg, torch.arange(s, device=tokens.device))
+    elif cfg.rope_theta:
         rope = rope_freqs(cfg.head_dim, cfg.rope_theta,
                           torch.arange(s, device=tokens.device))
     if cfg.family == "audio":
@@ -192,6 +218,8 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
         aux = {k: torch.zeros((), device=x.device)
                for k in ("moe_aux", "moe_zloss")}
     grads = _taking_grads(params, x, modality)
+    for lp in unbind_groups(params.get("lead", {}), cfg.first_k_dense):
+        x = _remat(cfg, grads, lead_layer, cfg, lp, x, rope)
     for gp in unbind_groups(params["blocks"], cfg.num_groups):
         x, group_aux = _remat(cfg, grads, _group_step, cfg, params, x, gp,
                               rope, modality)
@@ -252,8 +280,8 @@ def chunked_ce(cfg: ModelConfig, params, x: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
-    """Next-token cross entropy (+ MoE aux losses, averaged over groups),
-    chunked over sequence."""
+    """Next-token cross entropy (+ MoE aux losses, averaged over groups,
+    the MoE layers), chunked over sequence."""
     tokens = batch["tokens"]
     x, aux = forward_hidden(cfg, params, tokens,
                             modality=batch.get("modality"))

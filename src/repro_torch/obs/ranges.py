@@ -9,17 +9,22 @@ range               code                                        runs in
 ==================  ==========================================  ============
 ``embed``           ``models/common.py`` ``embed``              forward
 ``attn``            ``models/attention.py`` ``attn_block``,     forward,
-                    ``attn_decode``                             recomputation
+                    ``mla_block``, ``attn_decode``              recomputation
+``attn.latent``     ``mla_block``: Wkv_a, the latent's norm,    forward,
+                    Wkv_b and the shared rotary key             recomputation
+``mlp``             ``models/transformer.py`` ``lead_layer``'s  forward,
+                    MLP (a dense lead layer of an MoE stack)    recomputation
 ``moe``             ``models/moe.py`` ``moe_block``             forward,
                                                                 recomputation
 ``moe.router``,     ``_router``, ``_assign``, the repeat and    forward,
 ``moe.assign``,     scatter into the capacity buffer,           recomputation
 ``moe.dispatch``,   ``_expert_ffn``, the gather, gate and sum
-``moe.experts``,    (banked and expert-parallel dispatch)
-``moe.combine``
+``moe.experts``,    (banked and expert-parallel dispatch), the
+``moe.combine``,    shared experts
+``moe.shared``
 ``lm_loss``         ``models/transformer.py`` ``chunked_ce``    forward
 ``<name>.bwd``      the backward of ``embed``, ``attn``,        backward
-                    ``moe`` and ``lm_loss``
+                    ``mlp``, ``moe`` and ``lm_loss``
 ==================  ==========================================  ============
 
 ``train_step.grads`` and ``train_step.optimizer`` (``launch/steps.py``)
