@@ -105,7 +105,7 @@ toolkit.  Phases:
    the card and on the CPU from the same CPU gradients (params, m and v
    within 2e-5); ``train atomics`` calls the path's scatter-adds twice
    each (the embedding's backward as indexing and as ``F.embedding``,
-   ``take_along_dim``'s in the CE, the MoE dispatch's ``index_put_``) and
+   ``take_along_dim``'s in the CE, the MoE dispatch's ``index_add_``) and
    says which give other bits; (b) ``train restart`` runs
    ``Trainer.run_with_restarts`` in float32 at full width on 4 of the 24
    layers (listed under ``reduced``: a float32 state of all 24 is ~6 GB
@@ -1503,8 +1503,8 @@ def phase_atomics() -> dict:
     896 table, 8 x 64 tokens) as indexing (the reference's form) and as
     ``F.embedding`` (the port's, ``models/common.embed``), of
     ``take_along_dim`` in ``chunked_ce`` (a (8, 64, 151,936) float32
-    log-softmax), and the MoE dispatch's ``index_put_(accumulate=True)``
-    with its gather's backward (olmoe-1b-7b's layer: 64 experts of 2048 ->
+    log-softmax), and the MoE dispatch's ``index_add_`` with its
+    ``index_select``'s backward (olmoe-1b-7b's layer: 64 experts of 2048 ->
     1024, top 8, 512 tokens, weights from a seeded card generator)."""
     import dataclasses
     from repro_torch.models import get_config, params
@@ -1540,7 +1540,7 @@ def phase_atomics() -> dict:
         "take_along_dim_backward": _bits_twice(
             lambda: torch.autograd.grad(torch.take_along_dim(
                 lp, tokens[..., None], dim=-1), lp, g_nll)),
-        "moe_index_put_accumulate": _bits_twice(moe)}
+        "moe_index_add": _bits_twice(moe)}
     del table, lp, p, x
     torch.cuda.empty_cache()
     return row

@@ -13,9 +13,9 @@ reference's conventions:
     ``expand``, ``transpose``, ``permute``, ``slice``, ``select``,
     ``as_strided``, ``unsqueeze``, ``_unsafe_view``, ``prim.device``, the
     ``empty`` allocations), as ``bitcast`` does; an in-place write into a
-    slice (``copy_``, ``index_put_``, ``index_copy_``) counts the slice read
-    and written, not the buffer, as ``dynamic-update-slice``; a gather or
-    index read counts twice the result plus the index operands, as
+    slice (``copy_``, ``index_put_``, ``index_copy_``, ``index_add_``) counts
+    the slice read and written, not the buffer, as ``dynamic-update-slice``;
+    a gather or index read counts twice the result plus the index operands, as
     ``dynamic-slice``;
   * collective bytes take max(operands, result) per op (a ring-transfer
     proxy) under the reference's kind names: ``_c10d_functional``'s
@@ -86,7 +86,7 @@ _NO_TRAFFIC = {"empty", "empty_strided", "empty_like", "new_empty",
 # update, index of the index operands); ``copy_`` into a view counts the
 # view written and the source read
 _SLICE_WRITES = {"index_put_": (2, 1), "index_copy_": (3, 2),
-                 "_index_put_impl_": (2, 1)}
+                 "index_add_": (3, 2), "_index_put_impl_": (2, 1)}
 
 # reads of a slice: index of the index operands
 _SLICE_READS = {"index": 1, "gather": 2, "index_select": 2, "embedding": 1,

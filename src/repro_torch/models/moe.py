@@ -18,8 +18,13 @@ it takes the banked path, as the reference does.  Two traps are kept
 (C.12): the top-k breaks ties toward the
 lower expert index, as ``jax.lax.top_k`` does (a stable descending sort;
 ``torch.topk`` promises no order), and dropped assignments scatter zero rows
-onto the last capacity slot with an add (``index_put_(...,
-accumulate=True)``), never an overwrite.  An assignment's slot is its
+onto the last capacity slot with an add (``index_add_``), never an
+overwrite.  The dispatch and the combine address the (E * C, D) buffer by
+one flat slot index, expert * C + slot: ``index_add_`` in, ``index_select``
+out, whose backwards are a gather and an ``index_add_``.  On a card these
+add with atomics, in no fixed order, and give the same values as an ordered
+sum: every kept assignment holds a slot of its own, and every other row
+added to a slot is zero.  An assignment's slot is its
 rank, in token-major order, among its expert's assignments (``_assign``:
 a stable sort of the expert ids), so an expert drops its latest
 assignments, as the reference's exclusive cumulative sum does.  The router
@@ -148,8 +153,8 @@ def _assign(top_p, top_i, cap: int,
     id, count), only those experts are here: the expert is the index among
     them, and an assignment to any other is not kept (nor counted as a
     drop); such assignments, most of the stream, add their zero rows to
-    slots spread over the whole buffer, not piled on one, whose additions
-    the sorting scatter would make one after another.
+    slots spread over the whole buffer, not piled on one, whose adds would
+    all contend for it.
 
     The slot is an assignment's rank in its expert's run of the stably
     sorted expert ids: the sort keeps token-major order inside each run, and
@@ -208,13 +213,14 @@ def moe_block_banked(cfg: ModelConfig, p, x: torch.Tensor, aux: bool = True
 
     # dropped assignments add zero rows onto the last slot (C.12)
     with span("moe.dispatch"):
+        flat = eid * cap + pos_c                              # (T*k,) slots
         x_rep = torch.repeat_interleave(x2, k, dim=0)         # (T*k, D)
         upd = x_rep * keep[:, None].to(x.dtype)
-        buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-        buf.index_put_((eid, pos_c), upd, accumulate=True)
+        buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
+        buf = buf.index_add_(0, flat, upd).view(e, cap, d)
     ye = _expert_ffn(cfg, p, buf)
     with span("moe.combine"):
-        y_rows = ye[eid, pos_c]                               # (T*k, D)
+        y_rows = ye.reshape(e * cap, d).index_select(0, flat)  # (T*k, D)
         y_rows = y_rows.float() * (gate * keep.float())[:, None]
         y2 = y_rows.reshape(t, k, d).sum(dim=1)
         return y2.to(x.dtype).reshape(b, s, d), aux_m
@@ -306,11 +312,12 @@ def moe_block_banked_ep(cfg: ModelConfig, p, x: torch.Tensor, mesh,
         with span("moe.dispatch"):
             mine = (eid >= m * e_loc) & (eid < (m + 1) * e_loc) & keep
             loc_e = torch.where(mine, eid - m * e_loc, 0)
+            flat = loc_e * cap + pos_c
             x_rep = torch.repeat_interleave(x2, k, dim=0)
             upd = x_rep * mine[:, None].to(xl.dtype)
-            buf = torch.zeros((e_loc, cap, d), dtype=xl.dtype,
+            buf = torch.zeros((e_loc * cap, d), dtype=xl.dtype,
                               device=xl.device)
-            buf.index_put_((loc_e, pos_c), upd, accumulate=True)
+            buf = buf.index_add_(0, flat, upd).view(e_loc, cap, d)
 
         with span("moe.experts"):
             h = torch.bmm(buf, w1)
@@ -321,7 +328,7 @@ def moe_block_banked_ep(cfg: ModelConfig, p, x: torch.Tensor, mesh,
             ye = torch.bmm(h, w2)
 
         with span("moe.combine"):
-            y_rows = ye[loc_e, pos_c]
+            y_rows = ye.reshape(e_loc * cap, d).index_select(0, flat)
             w_gate = (gate * mine.float())[:, None]
             y2 = (y_rows.float() * w_gate).reshape(tl, k, d).sum(dim=1)
             y2 = funcol.all_reduce(y2, "sum", group)  # combine experts

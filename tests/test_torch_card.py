@@ -1,8 +1,8 @@
 """The port on the card (``-m cuda``; these tests skip without one): its CUDA
-kernels, the serve step of the decode path, the MoE capacity assignment,
-a train step with its checkpoint, the dry run of a reduced cell, the op
-counter's exact mesh counts with fake CUDA tensors and the Calyx matrix's
-torch oracle.
+kernels, the serve step of the decode path, the MoE capacity assignment and
+flat slot index, a train step with its checkpoint, the dry run of a reduced
+cell, the op counter's exact mesh counts with fake CUDA tensors and the
+Calyx matrix's torch oracle.
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card.py
 
@@ -323,6 +323,79 @@ def test_moe_assign_on_the_card_matches_the_cpu(name, tokens):
     print(f"moe._assign {name} ({tokens * k} x {e}): "
           f"{t0.elapsed_time(t1) / n:.4f} ms a call "
           f"({torch.cuda.get_device_name(0)})")
+
+
+@pytest.mark.cuda
+def test_moe_flat_slot_index_on_the_card_matches_the_expert_slot_index():
+    """granite-moe-1b-a400m's MoE layer at the train cell's shape (16,384
+    bf16 tokens, top-8 of 32 experts, 5,120 slots of 1,024), the tokens
+    skewed so that experts drop: the banked dispatch's output and its
+    gradients of x, the router, w1, wg and w2, in each of two runs (its
+    atomics add in no fixed order), equal those of the (expert, slot)
+    formulation; a profiled forward and backward of the flat index launches no
+    ``indexing_backward_kernel`` (the sorting scatter), which the (expert,
+    slot) one does.  Prints each one's device ms a forward and backward."""
+    _card()
+    import dataclasses
+    import torch_moe_indexed
+    from repro_torch.models import get_config, moe, params
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              dtype="bfloat16")
+    t, d = 16384, cfg.d_model
+    g = torch.Generator(device="cuda").manual_seed(t)
+    p = {}
+    for leaf in ("router", "w1", "wg", "w2"):
+        shape = params.moe_shapes(cfg)[leaf][0]
+        p[leaf] = (torch.randn(*shape, device="cuda", generator=g)
+                   / shape[-2] ** 0.5).to(torch.bfloat16).requires_grad_(True)
+    # every token shares a direction, so the router favours a few experts
+    # and many assignments drop, as in the cell (38-46%)
+    x = (torch.randn(4, t // 4, d, device="cuda", generator=g)
+         + 2 * torch.randn(d, device="cuda", generator=g))
+    x = x.to(torch.bfloat16).requires_grad_(True)
+    dy = torch.randn(4, t // 4, d, device="cuda", generator=g)
+    cap = moe.capacity(cfg, t)
+    assert cap == 5120
+    top_p, top_i, _ = moe._router(cfg, p, x.detach().reshape(t, d))
+    dropped = int((~moe._assign(top_p, top_i, cap)[2]).sum())
+    assert dropped > t
+    leaves = [x] + [p[k] for k in ("router", "w1", "wg", "w2")]
+
+    def run(fn):
+        y, aux = fn(cfg, p, x)
+        loss = (y.float() * dy).sum() + aux["moe_aux"] + aux["moe_zloss"]
+        return [y, *torch.autograd.grad(loss, leaves)]
+    want = run(torch_moe_indexed.indexed_banked)
+    for _ in range(2):
+        got = run(moe.moe_block_banked)
+        for a, b, what in zip(got, want, ["y", "x", "router", "w1", "wg", "w2"]):
+            assert a.dtype == b.dtype and torch.equal(a, b), what
+    del got, want
+    kernels = {}
+    for label, fn in (("flat", moe.moe_block_banked),
+                      ("expert_slot", torch_moe_indexed.indexed_banked)):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run(fn)
+            torch.cuda.synchronize()
+        kernels[label] = {e.key for e in prof.key_averages()}
+    sort_scatter = lambda names: any(  # noqa: E731
+        "indexing_backward_kernel" in n for n in names)
+    assert sort_scatter(kernels["expert_slot"])
+    assert not sort_scatter(kernels["flat"])
+    n = 5
+    for label, fn in (("flat", moe.moe_block_banked),
+                      ("expert_slot", torch_moe_indexed.indexed_banked)):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(n):
+            run(fn)
+        t1.record()
+        torch.cuda.synchronize()
+        print(f"moe_block_banked {label} ({t} x 8 of 32, {dropped} dropped): "
+              f"{t0.elapsed_time(t1) / n:.3f} ms a forward and backward "
+              f"({torch.cuda.get_device_name(0)})")
 
 
 @pytest.mark.cuda

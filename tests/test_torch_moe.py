@@ -12,6 +12,10 @@ assignments (a capacity factor that forces drops) add zero rows onto the
 last slot, so the output is the reference's.  ``_assign``'s slots, bit for
 bit, against a plain loop's exclusive counts: 4-128 experts, 1-131,072
 assignments, uniform, Zipf and single-expert ids, with and without drops.
+The banked dispatch's flat slot index (``index_add_`` / ``index_select``)
+against the (expert, slot) ``index_put_`` and advanced index it replaced:
+the output and every gradient equal, without drops, with drops on a skewed
+expert and with a held share.
 """
 import dataclasses
 
@@ -28,6 +32,7 @@ from repro.models import params as RP  # noqa: E402
 from repro_torch.models import get_config  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
+from torch_moe_indexed import indexed_banked  # noqa: E402
 
 NAME = "olmoe-1b-7b"
 F32, BF16 = 1e-5, 2e-2
@@ -244,3 +249,55 @@ def test_assign_matches_exclusive_counts(e, n, kind, room):
     assert torch.equal(pos_c, torch.clamp_max(want, cap - 1))
     if n > e * cap:                                  # drops by pigeonhole
         assert not bool(keep.all())
+
+
+# == the flat slot index =====================================================
+
+
+# (config, changes, the expert the router is skewed toward or None)
+FLAT_CASES = {
+    "no_drops": (NAME, {"moe_capacity_factor": 8.0}, None),
+    "skewed_drops": (NAME, {"moe_capacity_factor": 0.5}, 1),
+    "held_share": ("deepseek-v2-lite-ep8", {"expert_offset": 4}, 5),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_slot_index_equals_the_expert_slot_index(case, dtype):
+    """The output and the gradients of x, the router, w1, wg and w2 equal,
+    bit for bit, those of the (expert, slot) formulation: every kept
+    assignment has a slot of its own and every other row added to a slot
+    is zero, so no sum depends on the order of its addends."""
+    name, changes, skew = FLAT_CASES[case]
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype,
+                              **changes)
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(31)
+    p = {}
+    for leaf in ("router", "w1", "wg", "w2"):
+        shape = P.moe_shapes(cfg)[leaf][0]
+        p[leaf] = (torch.randn(*shape, generator=g)
+                   / shape[-2] ** 0.5).to(dt).requires_grad_(True)
+    if skew is not None:
+        with torch.no_grad():
+            p["router"][:, skew] += 0.5
+    x = torch.randn(2, 32, cfg.d_model, generator=g).to(dt).requires_grad_(True)
+    dy = torch.randn(2, 32, cfg.d_model, generator=g)
+    t = x.shape[0] * x.shape[1]
+    _, top_i, _ = MOE._router(cfg, p, x.detach().reshape(t, cfg.d_model))
+    held = top_i.reshape(-1) - cfg.expert_offset
+    held = held[(held >= 0) & (held < cfg.num_experts)]
+    load = torch.bincount(held, minlength=cfg.num_experts)
+    drops = int(load.max()) > MOE.capacity(cfg, t)
+    assert drops == (skew is not None)
+    assert (held.numel() < top_i.numel()) == (case == "held_share")
+    leaves = [x] + [p[k] for k in ("router", "w1", "wg", "w2")]
+    runs = []
+    for fn in (MOE.moe_block_banked, indexed_banked):
+        y, aux = fn(cfg, p, x)
+        loss = (y.float() * dy).sum() + aux["moe_aux"] + aux["moe_zloss"]
+        runs.append([y, *torch.autograd.grad(loss, leaves)])
+    for got, want, what in zip(*runs, ["y", "x", "router", "w1", "wg", "w2"]):
+        assert got.dtype == want.dtype and torch.equal(got, want), what
+        assert bool(want.abs().sum() > 0), what

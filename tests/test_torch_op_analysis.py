@@ -119,6 +119,14 @@ class TestTraffic:
         cost = OA.analyze(write, torch.zeros(1024, 1024), _rand(1024), idx)
         assert cost.traffic_bytes == 2 * 1024 * 4 + 2 * (2 * 1024 * 4 + 16)
 
+    def test_index_add_counts_the_rows(self):
+        """``index_add_`` (the MoE dispatch's) reads and writes the rows it
+        adds to, as ``index_put_`` does, not the buffer."""
+        idx = torch.tensor([1, 7])
+        cost = OA.analyze(lambda buf, rows, i: buf.index_add_(0, i, rows),
+                          torch.zeros(1024, 1024), _rand(2, 1024), idx)
+        assert cost.traffic_bytes == 2 * (2 * 1024 * 4 + 16)
+
     def test_gather_counts_the_rows(self):
         idx = torch.tensor([3, 5, 9])
         cost = OA.analyze(lambda t, i: t[i], _rand(1024, 64), idx)
